@@ -1,6 +1,6 @@
-"""taichi_image_tpu — a TPU-native camera-ISP framework.
+"""taichi_image_tpu — a multi-camera camera-ISP framework.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of
+Built from scratch in JAX/XLA with the capabilities of
 uc-vision/taichi_image (reference layer map in SURVEY.md §1): packed
 12/16-bit RAW codecs, Malvar-He-Cutler + bilinear demosaic for all four
 Bayer patterns, white balance / color correction, resize + the eight image

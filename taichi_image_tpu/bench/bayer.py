@@ -9,6 +9,7 @@ import jax
 import numpy as np
 
 from taichi_image_tpu.ops import bayer
+from taichi_image_tpu.utils.device import enable_compile_cache, require_gpu
 from taichi_image_tpu.utils.benchmark import benchmark
 
 
@@ -19,6 +20,8 @@ def main(argv=None):
   parser.add_argument("--iterations", type=int, default=10000)
   parser.add_argument("--warmup", type=int, default=1000)
   args = parser.parse_args(argv)
+  require_gpu()
+  enable_compile_cache()
 
   h, w = args.size
   rng = np.random.default_rng(0)

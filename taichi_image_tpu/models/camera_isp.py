@@ -16,7 +16,7 @@ vec9 metering layout (reference camera_isp.py:102-115):
     [bounds.min, bounds.max, log_bounds.min, log_bounds.max,
      log_mean, mean, rgb_mean(3)]
 
-Multi-camera scaling: cameras shard across TPU chips on a mesh axis; the
+Multi-camera scaling: cameras shard across devices on a mesh axis; the
 metering reduction becomes psum/pmin/pmax collectives over that axis (see
 taichi_image_tpu/parallel/). This replaces the reference's single-GPU
 multi-launch batching (camera_isp.py:399-401).
@@ -48,16 +48,13 @@ __all__ = ["camera_isp", "Camera16", "Camera32", "CameraBF16",
 
 
 class PlanarImage:
-  """TPU-native handle for the per-image (reference-parity) API.
+  """Device image handle for the per-image (reference-parity) API.
 
   The reference's loaders hand out interleaved (H, W, 3) images
-  (camera_isp.py:318-403) — a layout whose 3-lane minor dim pads 10-42x
-  in TPU tiled memory (docs/PERFORMANCE.md), so materializing it on
-  device makes the legacy API unusable at 4K. This handle keeps the
-  image in the framework's native device forms — 12-channel Bayer PHASE
-  planes (N-less (12, H/2, W/2), what the loaders produce; even the
-  device-side interleave to planar bf16 measured ~18 ms/frame at 4K) or
-  planar (C, H, W) (what the tonemaps produce as u8) — and presents the
+  (camera_isp.py:318-403). This handle keeps the image in the
+  framework's native device forms — 12-channel Bayer PHASE planes
+  (N-less (12, H/2, W/2), what the loaders produce) or planar (C, H, W)
+  (what the tonemaps produce as u8) — and presents the
   reference's interleaved contract only at the numpy/host boundary,
   where the conversion is a cheap host reshape/view:
 
@@ -286,7 +283,7 @@ def reinhard_apply(image, metrics, gamma, intensity, light_adapt,
 
   # the reference stores p in the working dtype, then reduces max over the
   # pre-cast f32 values and reads back the cast image (camera_isp.py:211-218)
-  p_cast = p.astype(types.canonical_dtype(work_dtype))
+  p_cast = types.store_as(p, work_dtype)
   axes = tuple(range(p.ndim - 3, p.ndim))  # per-image max over (h, w, c)
   max_out = jnp.maximum(1e-6, jnp.max(p, axis=axes, keepdims=True))
   out = p_cast.astype(jnp.float32) / max_out
@@ -407,9 +404,8 @@ class _ISPBase:
     if isinstance(image, PlanarImage):
       image._force()
     if isinstance(image, PlanarImage) and image._phases is not None:
-      rgb, _ = _resize_x12(image._phases[None], size, scale,
-                           self._work_dtype)
-      return PlanarImage(rgb[0])
+      return PlanarImage(_resize_from_phases(
+          image._phases[None], size, scale, self._work_dtype)[0])
     return PlanarImage(
         _resize_planar(_to_planar(image)[None], size, scale,
                        self._work_dtype)[0])
@@ -495,12 +491,9 @@ class _ISPBase:
 
   # -- loaders (single image, reference API) ------------------------------
   # All loaders run the planar phase core (decode -> demosaic+WB/CCM ->
-  # resize) and hand out PlanarImage handles: interleaved HWC device
-  # arrays pad 10-42x in TPU tiled memory, which made the round-2 legacy
-  # path CPU-grade (docs/PERFORMANCE.md; round-2 VERDICT missing #5).
-  # Without a resize the handle stays in PHASE form (even the planar
-  # 16-bit interleave costs ~18 ms/frame at 4K), so the downstream
-  # tonemap_* run the same phase pipeline as the fused step.
+  # resize) and hand out PlanarImage handles. Without a resize the handle
+  # stays in PHASE form, so the downstream tonemap_* run the same phase
+  # pipeline as the fused step.
 
   def _load_one(self, raws1, fmt, ids_format=False):
     """Loaders are LAZY: capture the raw + the rig's loader args (the
@@ -613,10 +606,7 @@ class _ISPBase:
     """EMA metering over strided crops of all cameras
     (reference camera_isp.py:376-385): first call seeds with t=0.
 
-    The strided crop runs as a minor-dim reshape-select inside the jit
-    (subsample_hw): the reference's ``[::8, ::8]`` slice translated
-    literally is a TPU minor-dim gather (~13 ms at 4K,
-    docs/PERFORMANCE.md '150 ms trap')."""
+    The strided crop runs inside the jit (subsample_hw)."""
     form, batch = self._stack_batch(images)
     self._update_metering_batch(form, batch)
 
@@ -633,8 +623,8 @@ class _ISPBase:
 
   # -- tonemap -------------------------------------------------------------
   # Phase-backed batches (the loaders' native form) run the fused
-  # step's phase tail (Pallas map kernel on bf16, u8-only interleave,
-  # phase-space transform); planar/HWC inputs use the planar tail.
+  # step's phase tail (u8-only interleave, phase-space transform);
+  # planar/HWC inputs use the planar tail.
 
   def tonemap_only(self, image, metrics, gamma, intensity, light_adapt,
                    color_adapt):
@@ -657,8 +647,7 @@ class _ISPBase:
                        intensity: float = 1.0, light_adapt: float = 1.0,
                        color_adapt: float = 0.0):
     """Shared metering update + per-camera Reinhard + output transform
-    (reference camera_isp.py:394-403). Phase/planar throughout (the
-    bf16 working dtype rides the Pallas map kernel); returns
+    (reference camera_isp.py:394-403). Phase/planar throughout; returns
     :class:`PlanarImage` u8 handles."""
     out = self._tonemap_fused_lazy(images, "reinhard", float(gamma),
                                    float(intensity), float(light_adapt),
@@ -691,9 +680,8 @@ class _ISPBase:
     """Fused fast path for the reference call pattern: when every image
     is an unforced lazy handle with identical loader configuration, the
     composed load_* -> tonemap_* flow IS the fused step — decode ->
-    demosaic -> metering EMA -> tonemap -> transform in ONE program with
-    in-kernel metering samples (bitwise-equal to the staged strided
-    slice, asserted on chip), instead of N decode programs + a metering
+    demosaic -> metering EMA -> tonemap -> transform in ONE program,
+    instead of N decode programs + a metering
     program + a tonemap program. Returns None when the batch is mixed
     (forced handles, raw arrays, differing configs) — the staged path
     handles those. Loader args are the ones captured at load time,
@@ -717,7 +705,7 @@ class _ISPBase:
     return [PlanarImage(batch=("planar", out, i))
             for i in range(len(images))]
 
-  # -- fused TPU-native step ----------------------------------------------
+  # -- fused step -----------------------------------------------------------
 
   def process(self, raws, fmt: str = "packed12", ids_format: bool = False,
               gamma: float = 1.0, intensity: float = 1.0,
@@ -726,12 +714,12 @@ class _ISPBase:
               color_format: str = "rgb"):
     """Fused whole-rig step: decode -> demosaic+WB/CCM -> resize ->
     metering EMA -> tonemap -> transform, in ONE jitted call over the
-    camera batch. TPU-native extension (SURVEY.md §7 step 4); equivalent
-    to load_* + tonemap_* but without host round-trips.
+    camera batch. Extension (SURVEY.md §7 step 4); equivalent to
+    load_* + tonemap_* but without host round-trips.
 
     ``raws``: (n_cameras, H, W_bytes|W) batch. Returns u8 outputs and
     updates the EMA state. ``layout``: 'planar' (default) returns the
-    TPU-native (n, 3, h', w') device array; 'hwc' returns a host numpy
+    native (n, 3, h', w') device array; 'hwc' returns a host numpy
     (n, h', w', 3) view (one device->host transfer + free moveaxis).
     ``color_format='yuv420'`` returns planar I420 ``(Y, UV)`` u8 device
     arrays instead (``layout`` ignored); it composes with resize and
@@ -767,9 +755,9 @@ class _ISPBase:
                     color_adapt: float = 0.0, tonemap: str = "reinhard",
                     layout: str = "planar", color_format: str = "rgb",
                     driver: str = "auto"):
-    """Fused step for frames too large for one compiled program (8K on
-    this environment): sequential row-band execution with halo overlap
-    and staged global reductions — same outputs as :meth:`process`,
+    """Fused step as a sequence of row-band programs (e.g. 8K frames with
+    bounded per-program memory): halo overlap and staged global
+    reductions — same outputs as :meth:`process` (within 1 u8 count),
     including the rig's resize policy (bands partition the OUTPUT rows)
     and output transform (applied on the assembled output). See
     models/large.py.
@@ -844,17 +832,15 @@ def _jit_load_planar(raws, fmt, ids_format, work_dtype, pattern, cc,
   """Per-image-API loader batch core: decode -> demosaic(+CCM) ->
   resize, entirely in phase/planar form. Same stages as the reference's
   load_* -> resize chain (camera_isp.py:333-373) routed through the
-  Pallas-eligible planar pipeline. Returns PHASE form (N, 12, hh, wh)
-  when there is no resize (the per-frame interleave to 16-bit planar
-  measured ~18 ms at 4K and nothing downstream needs it), else the
-  resized planar RGB."""
+  planar pipeline. Returns PHASE form (N, 12, hh, wh) when there is no
+  resize (nothing downstream needs the interleave), else the resized
+  planar RGB."""
   phases = load_raw_phases(raws, fmt, work_dtype, ids_format)
   wd = types.canonical_dtype(work_dtype)
   x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd)
   if resize_plan is not None:
     size, scale = resize_plan
-    rgb, _ = _resize_x12(x12, size, scale, work_dtype)
-    return rgb
+    return _resize_from_phases(x12, size, scale, work_dtype)
   return x12
 
 
@@ -900,8 +886,8 @@ def _jit_linear_planar(batch, metrics, gamma, transform):
 def _jit_reinhard_phases(x12, metrics, gamma, intensity, light_adapt,
                          color_adapt, work_dtype, transform):
   """Phase-form tonemap for phase-backed image batches: identical tail
-  to the fused step (bf16 rides the Pallas map kernel; the interleave
-  happens once, on u8, transform in phase space)."""
+  to the fused step (the interleave happens once, on u8, transform in
+  phase space)."""
   n, _, hh, wh = x12.shape
   out12 = reinhard_apply_ca(x12.reshape(n, 4, 3, hh, wh), metrics,
                             gamma, intensity, light_adapt, color_adapt,
@@ -919,11 +905,9 @@ def _jit_linear_phases(x12, metrics, gamma, transform):
 
 
 # --------------------------------------------------------------------------
-# Planar fast path (channels at axis -3; images planar/phase-planar).
+# Planar pipeline (channels at axis -3; images planar/phase-planar).
 #
-# TPU tiled layouts pad the two minor dims; HWC images with C=3 minor
-# expand ~21-42x in memory and bandwidth (measured on v5e). The fused
-# pipeline therefore keeps everything planar: CFA phase planes ->
+# The fused pipeline keeps everything planar: CFA phase planes ->
 # 12-channel phase-RGB -> tonemap -> planar (N, 3, H, W) u8. See
 # taichi_image_tpu/ops/bayer.py (planar section).
 # --------------------------------------------------------------------------
@@ -944,19 +928,10 @@ def load_raw_phases(raws, fmt: str, work_dtype, ids_format: bool = False):
   packed12: the 3 byte planes b0/b1/b2 (lane stride 3) give the even and
   odd CFA columns directly (reference bit layouts packed.py:12-55), and
   row-parity slicing completes the phase split — planar ops only.
-
-  bf16 on TPU routes through the Pallas decode kernel
-  (ops/pallas/decode.py, bit-identical output, ~0.9 ms faster at 6x4K);
-  everything else uses the XLA formulation below (probed fastest of 10+
-  variants, tools/probe_decode*.py).
   """
   wd = types.canonical_dtype(work_dtype)
   scale = types.scale_of(wd)
   if fmt == "packed12":
-    if wd == types.bf16:
-      from taichi_image_tpu.ops.pallas import decode as pl_decode
-      if pl_decode.decode_pallas_available(raws.shape[1], raws.shape[2]):
-        return pl_decode.decode12_phases_bf16(raws, ids_format)
     b0 = raws[:, :, 0::3].astype(jnp.uint16)
     b1 = raws[:, :, 1::3].astype(jnp.uint16)
     b2 = raws[:, :, 2::3].astype(jnp.uint16)
@@ -968,14 +943,12 @@ def load_raw_phases(raws, fmt: str, work_dtype, ids_format: bool = False):
       odd = (b1 << 4) | (b2 >> 4)
     phases = jnp.stack([even[:, 0::2], odd[:, 0::2],
                         even[:, 1::2], odd[:, 1::2]], axis=1)
-    return (phases.astype(jnp.float32)
-            * jnp.float32(scale / 4095.0)).astype(wd)
+    return types.store_as(phases.astype(jnp.float32)
+                          * jnp.float32(scale / 4095.0), wd)
   if fmt == "packed16":
     # byte-quad reshape: pixel-pair bytes (lo_e, hi_e, lo_o, hi_o) split
     # on a free minor-dim-4 view; u16 assembly in exact f32 arithmetic
-    # (values <= 65535). Avoids both the u16 intermediate (16-bit int
-    # converts are scalarized on this backend) and full-res lane-stride
-    # slices (~158 -> 7.4 ms at 6x4K, bit-identical).
+    # (values <= 65535).
     n, h, wb = raws.shape
     b = raws.reshape(n, h, wb // 4, 4)
     even = (b[..., 1].astype(jnp.float32) * 256.0
@@ -984,12 +957,12 @@ def load_raw_phases(raws, fmt: str, work_dtype, ids_format: bool = False):
            + b[..., 2].astype(jnp.float32))
     phases = jnp.stack([even[:, 0::2], odd[:, 0::2],
                         even[:, 1::2], odd[:, 1::2]], axis=1)
-    return (phases * jnp.float32(scale / 65535.0)).astype(wd)
+    return types.store_as(phases * jnp.float32(scale / 65535.0), wd)
   if fmt == "u16":
     phases = cfa_phases(raws)
-    return (phases.astype(jnp.float32) / 65535.0).astype(wd)
+    return types.store_as(phases.astype(jnp.float32) / 65535.0, wd)
   if fmt in ("f32", "f16"):
-    return cfa_phases(raws).astype(wd)
+    return types.store_as(cfa_phases(raws), wd)
   raise ValueError(f"unknown raw format {fmt}")
 
 
@@ -1036,7 +1009,7 @@ def reinhard_map_ca(x, metrics, intensity, light_adapt, color_adapt):
   the adapt chain is computed once per PIXEL instead of per channel —
   bitwise-identical (with ca == 0, ``lerp(0, a, b) == a`` exactly for
   finite b, so all three channels' adapt values coincide) but with 3x
-  fewer pow/exp evaluations, which dominate the tonemap cost on the VPU.
+  fewer pow/exp evaluations, which dominate the tonemap arithmetic.
   """
   m = metrics
   key = (m[3] - m[4]) / (m[3] - m[2])
@@ -1062,9 +1035,8 @@ def reinhard_map_ca(x, metrics, intensity, light_adapt, color_adapt):
 
 
 def _gamma_pow(x, inv_gamma):
-  """``x ** inv_gamma`` as exp2(log2(x) * c): XLA's generic jnp.power
-  lowering costs +1.35 ms/step at 6x4K on this TPU while the exp2/log2
-  pair costs +0.10 (probed round 3, docs/PERFORMANCE.md). Same edge
+  """``x ** inv_gamma`` as exp2(log2(x) * c), cheaper than XLA's generic
+  jnp.power lowering. Same edge
   semantics for the gamma domain: x == 0 -> log2 -inf -> exp2 -> 0
   (pow(0, c>0) == 0), x < 0 -> NaN (pow of negative with non-integer
   exponent), NaN -> NaN; values agree with pow to f32 ulps (<=1 u8
@@ -1076,30 +1048,8 @@ def reinhard_gamma_ca(p_cast, max_out, gamma):
   """Gamma stage: (p in working dtype, per-image max of the f32 p) -> u8
   (reference camera_isp.py:211-218). ``gamma`` as the Python float 1.0
   (the reference default) skips the pow entirely (IEEE pow(x, 1) == x,
-  and numpy's oracle agrees exactly).
-
-  i32 ``p_cast`` is the Camera16 fast path's q16-packed map output
-  (ops/pallas/q16). The lo/hi halfwords are dequantized and quantized
-  to u8 SEPARATELY (two half-size elementwise chains that fuse onto the
-  kernel output) and only the final u8 is channel-interleaved back to
-  (n, 12, hh, wh): interleaving the i32 codes first makes XLA
-  materialize the full-res f32 map behind the layout change (+4 ms/step
-  at 6x4K — the same fuse-the-interleave-with-its-quantize-producer
-  rule as the banded 8K finish, docs/PERFORMANCE.md)."""
+  and numpy's oracle agrees exactly)."""
   max_out = jnp.maximum(1e-6, max_out)
-  if p_cast.dtype == jnp.int32:
-    from taichi_image_tpu.ops.pallas import q16
-
-    def finish_half(codes):
-      o = q16.decode_p(codes) / max_out
-      if not (isinstance(gamma, float) and gamma == 1.0):
-        o = _gamma_pow(o, 1.0 / gamma)
-      return jnp.clip(255.0 * o, 0, 255).astype(jnp.uint8)
-
-    lo8 = finish_half(q16.unpack_lo(p_cast))
-    hi8 = finish_half(q16.unpack_hi(p_cast))
-    n, nw, hh, wh = p_cast.shape
-    return jnp.stack([lo8, hi8], axis=2).reshape(n, 2 * nw, hh, wh)
   out = p_cast.astype(jnp.float32) / max_out
   if not (isinstance(gamma, float) and gamma == 1.0):
     out = _gamma_pow(out, 1.0 / gamma)
@@ -1112,78 +1062,16 @@ def reinhard_map_max_ca(x, metrics, intensity, light_adapt,
   ``(p_cast, max_out)`` — the working-dtype map output in FLAT
   ``(n, c_total, H, W)`` form (all channel-like dims of ``x`` merged)
   and the per-image pre-gamma f32 p max shaped ``(n, 1, 1, 1)``.
-  Finish with :func:`reinhard_gamma_ca`, THEN reshape the u8.
-
-  The flat contract is load-bearing for fusion, not cosmetics: keeping
-  the Pallas kernel output in its native (n, 12, hh, wh) shape until
-  after u8 quantization lets XLA fuse the f32 convert + divide + clamp
-  chain directly onto the kernel result. A reshape to (n, 4, 3, hh,
-  wh) between kernel and arithmetic made XLA hoist the convert to an
-  entry-level op that materialized the full-res f32 map (597 MB at
-  6x4K) in HBM — a measured +2.0 ms/step tail regression (round-3
-  mid-round; r2-vs-r3 same-window HLO diff in docs/PERFORMANCE.md).
-
-  bf16 fast path: when the working dtype is bf16 on TPU (and
-  ``color_adapt`` is the static reference default 0.0), the map+max runs
-  in the manual-DMA Pallas kernel (ops/pallas/reinhard.py) — XLA's f16/
-  bf16 elementwise passes move ~85-147 GB/s on this machine while the
-  kernel streams ~2x faster; values match XLA bitwise on probed inputs
-  (tolerance contract: <=1 u8 count, tools/probe_tail2.py)."""
-  wd = types.canonical_dtype(work_dtype)
+  Finish with :func:`reinhard_gamma_ca`, THEN reshape the u8."""
   flat = x.reshape(x.shape[0], -1, x.shape[-2], x.shape[-1])
-  # color_adapt must be a STATIC float for the kernel (it selects the
-  # per-channel adapt mode at trace time); 0.0 is the reference default,
-  # > 0 runs the kernel's per-channel chain (round 5 — previously the
-  # ca > 0 family fell back to the XLA path).
-  if (wd == types.bf16 and x.dtype == jnp.bfloat16
-      and isinstance(color_adapt, float)):
-    from taichi_image_tpu.ops.pallas.reinhard import (
-        reinhard_bf16_available, reinhard_map_bf16_dma)
-    if reinhard_bf16_available(flat.shape[1], flat.shape[2],
-                               flat.shape[3]):
-      p_cast, max_out = reinhard_map_bf16_dma(flat, metrics, intensity,
-                                              light_adapt,
-                                              color_adapt=color_adapt)
-      if axis_name is not None:
-        max_out = jax.lax.pmax(max_out, axis_name)
-      return p_cast, max_out.reshape(x.shape[0], 1, 1, 1)
   p = reinhard_map_ca(x, metrics, intensity, light_adapt, color_adapt)
-  p_cast = p.astype(types.canonical_dtype(work_dtype))
+  p_cast = types.store_as(p, work_dtype)
   axes = tuple(range(1, p.ndim))
   max_out = jnp.max(p, axis=axes)
   if axis_name is not None:
     max_out = jax.lax.pmax(max_out, axis_name)
   return (p_cast.reshape(flat.shape),
           max_out.reshape(x.shape[0], 1, 1, 1))
-
-
-def demosaic_reinhard_front(phases, metrics, intensity, light_adapt,
-                            pattern, cc):
-  """Front-fused demosaic + Reinhard map (bf16 pipeline): one Pallas
-  pass from phase planes to the pre-gamma ``p`` — the composed
-  stencil→x12→map-kernel chain pays a full-res x12 HBM round trip
-  (~600 MB/step at 6x4K) that this skips. Requires ``metrics`` computed
-  beforehand (from ops/bayer.demosaic_samples — the kernel's own sample
-  emission would be circular). Returns ``(p bf16 (n, 12, hh, wh),
-  max_out (n, 1, 1, 1))``, drop-in for reinhard_map_max_ca's contract
-  (values: same quantize-then-map ordering, exp2/log2 pow — <=1 u8
-  count vs the composed path, bitwise-checked on chip)."""
-  from taichi_image_tpu.ops.pallas import demosaic as pallas_dm
-  from taichi_image_tpu.ops.pallas.reinhard import reinhard_scal
-  n, _, hh, wh = phases.shape
-  weights = bayer_ops._demosaic_tables(pattern, "mhc")
-  in_bf16 = phases.dtype == jnp.bfloat16
-  ph_in = phases if in_bf16 else phases.astype(jnp.float32)
-  fin = bayer_ops._stencil_finish_spec(weights, hh, wh, cc, jnp.bfloat16)
-  tiles = pallas_dm.tiling_for(hh, wh, in_bf16=in_bf16, out_bf16=True,
-                               extra_f32_tmp=pallas_dm._TONEMAP_TMPS)
-  if tiles is None:
-    raise ValueError(
-        f"no front-fused tiling for phase shape {(hh, wh)} — gate calls "
-        "with ops.pallas.demosaic.front_fused_available")
-  scal = reinhard_scal(metrics, intensity, light_adapt)
-  return pallas_dm.demosaic_reinhard_stencil(ph_in, weights, *tiles,
-                                             scal, fin)
 
 
 def reinhard_apply_ca(x, metrics, gamma, intensity, light_adapt,
@@ -1223,16 +1111,13 @@ def _resize_planar(images, size, scale, work_dtype):
   left = jnp.take(rows, jnp.asarray(c_lo), axis=3)
   right = jnp.take(rows, jnp.asarray(c_hi), axis=3)
   out = left + jnp.asarray(c_f)[None, None, None, :] * (right - left)
-  return out.astype(types.canonical_dtype(work_dtype))
+  return types.store_as(out, work_dtype)
 
 
-# Applying an ImageTransform AFTER the phase->planar interleave lets XLA
-# merge the interleave and transform transposes into one pathological
-# 6-d transpose (+27 ms at 6x4K, measured — an optimization_barrier does
-# not stop the merge). Instead the transform happens in PHASE SPACE
-# (12-channel planes: the same geometric op on the half-res plane grids
-# plus a phase-channel permutation, exact because H and W are even), and
-# the standard interleave runs last: ~6 ms total instead of ~31.
+# The output transform runs in PHASE SPACE (12-channel planes: the same
+# geometric op on the half-res plane grids plus a phase-channel
+# permutation, exact because H and W are even), and the interleave runs
+# last, so the interleave and the transform are one data movement.
 # Permutations below were validated exhaustively against the planar
 # path (tests/test_isp.py::test_phase_space_transforms).
 _PHASE_TRANSFORM_PERM = {
@@ -1281,10 +1166,8 @@ def planar_from_phases_transformed(out12, t: ImageTransform,
   Single-pass formulation: the per-plane geometric op, the phase
   permutation, and the interleave are ALL data movement, so they fold
   into ONE 6-d transpose plus axis flips — e.g. for rotate_90,
-  ``out[c, 2*iw+pc, 2*ox+rx] = x6[pc, 1-rx, c, hh-1-ox, iw]``. Probed
-  0.45 ms/step faster at 6x4K than the two-pass phase-space route
-  (rot90 marginal +2.78 vs +3.23, tools/probe_rot90.py) and bitwise-
-  equal for all 8 transforms."""
+  ``out[c, 2*iw+pc, 2*ox+rx] = x6[pc, 1-rx, c, hh-1-ox, iw]``.
+  Bitwise-equal to the two-pass route for all 8 transforms."""
   if t == ImageTransform.none:
     return phases_to_planar(out12, out_dtype)
   n, _, hh, wh = out12.shape
@@ -1317,13 +1200,10 @@ def _resize_from_phases(x12, size, scale, work_dtype, row_band=None):
   -> planar (N, 3, h_out, w_out), bitwise-equal to
   ``_resize_planar(phases_to_planar(x12), ...)``.
 
-  Gathering from the interleaved planar lets XLA fuse the phase->planar
-  6-d transpose into the gathers — a ~44 ms pathology at 6x4K (or a
-  remote-compiler crash when chained). Here row/column parities join the
-  gather axes instead: a static channel permutation to (c, cp, rp) makes
-  (rp, hh) a FREE merged view for the row taps; one cheap major-dim swap
-  then merges (cp, wh) for the column taps. ~13 ms at 6x4K
-  (tools/probe_resize2.py). Phase index is col-parity-major
+  Row/column parities join the gather axes instead of interleaving
+  first: a static channel permutation to (c, cp, rp) makes (rp, hh) a
+  FREE merged view for the row taps; one major-dim swap then merges
+  (cp, wh) for the column taps. Phase index is col-parity-major
   (p = cp*2 + rp — see _PHASE_TRANSFORM_PERM validation).
 
   ``row_band=(o0, o1, phase_row0, full_h_in)``: banded-driver mode —
@@ -1360,25 +1240,7 @@ def _resize_from_phases(x12, size, scale, work_dtype, row_band=None):
   left = jnp.take(rows, jnp.asarray(ci_lo), axis=3)
   right = jnp.take(rows, jnp.asarray(ci_hi), axis=3)
   out = left + jnp.asarray(c_f)[None, None, None, :] * (right - left)
-  return out.astype(types.canonical_dtype(work_dtype))
-
-
-def _resize_x12(x12, size, scale, work_dtype):
-  """Resize 12-channel phase form -> planar (N, 3, h', w') RGB, routing
-  to the Pallas banded-matmul kernel (ops/pallas/resize.py) on the bf16
-  TPU pipeline, else the XLA gather formulation. Returns
-  ``(rgb, materialized)`` — ``materialized`` tells the caller whether
-  the result is an HBM array (kernel) or a fusable XLA value, which
-  decides the right metering-subsample formulation."""
-  n, _, hh, wh = x12.shape
-  sy, sx = _plan_scales(2 * hh, 2 * wh, size, scale)
-  if (types.canonical_dtype(work_dtype) == types.bf16
-      and x12.dtype == jnp.bfloat16):
-    from taichi_image_tpu.ops.pallas import resize as pl_resize
-    if pl_resize.resize_pallas_available(hh, wh, size[1], size[0],
-                                         sy, sx):
-      return pl_resize.resize_x12_bf16(x12, size, (sy, sx)), True
-  return _resize_from_phases(x12, size, scale, work_dtype), False
+  return types.store_as(out, work_dtype)
 
 
 def _transform_planar(images, t: ImageTransform):
@@ -1455,19 +1317,15 @@ def _yuv420_w6():
 
 
 def _yuv420_phases_dot_bf16(out12):
-  """I420 from u8 phase-RGB as ONE bf16 MXU channel contraction.
+  """I420 from u8 phase-RGB as ONE bf16 channel contraction.
 
-  The two-chain formulation pays XLA's ~90 GB/s elementwise wall TWICE
-  on the full-res u8 read (Y chain +1.65 ms, UV chain +2.13 at 6x4K —
-  tools/probe_i420.py sub-stage attribution); rooting both at a single
-  (6, 12) dot reads the u8 once and rides the MXU: the I420 marginal
-  drops +3.1 -> +0.93 ms. u8 -> bf16 is exact (ints <= 255) and the
-  dot accumulates in f32; the bf16-rounded matrix coefficients perturb
-  results by <= ~0.4 of a count before quantization, so Y/UV can differ
-  from the f32 two-chain values by 1 count at truncation boundaries —
-  within the pipeline's <=1-count contract. bf16 pipeline only (the
-  same policy as the Pallas resize kernel: a bf16 dot would LOSE
-  precision for the f32-parity pipelines)."""
+  Rooting the Y and UV chains at a single (6, 12) dot reads the u8
+  once. u8 -> bf16 is exact (ints <= 255) and the dot accumulates in
+  f32; the bf16-rounded matrix coefficients perturb results by <= ~0.4
+  of a count before quantization, so Y/UV can differ from the f32
+  two-chain values by 1 count at truncation boundaries — within the
+  pipeline's <=1-count contract. bf16 pipeline only: a bf16 dot would
+  lose precision for the f32-parity pipelines."""
   from taichi_image_tpu.ops.color import _YUV_OFFSET
   n, _, hh, wh = out12.shape
   w = jnp.asarray(_yuv420_w6(), jnp.bfloat16)
@@ -1482,7 +1340,7 @@ def _yuv420_phases_dot_bf16(out12):
   return bayer_ops.phases_to_plane(u8_6[:, :4]), u8_6[:, 4:6]
 
 
-def yuv420_from_phases_u8(out12, mxu: bool = False):
+def yuv420_from_phases_u8(out12, dot: bool = False):
   """Tonemapped u8 phase-RGB (N, 12, hh, wh) -> planar I420 u8:
   (Y (N, H, W), UV (N, 2, hh, wh)).
 
@@ -1492,24 +1350,21 @@ def yuv420_from_phases_u8(out12, mxu: bool = False):
   block mean is exactly the mean over the four Bayer phases — in phase
   form the subsampling is free.
 
-  ``mxu=True`` (bf16 pipeline) routes through the single-dot MXU
+  ``dot=True`` (bf16 pipeline) routes through the single-dot
   formulation (:func:`_yuv420_phases_dot_bf16`, <=1 count vs the f32
   chains). The f32 two-chain path below: the u8 phase array is
   deliberately a two-consumer value (one 1-byte materialization read by
-  both chains). A barrier-recompute variant that re-ran the gamma
-  finish inside each chain from the bf16 map output was raced same-run
-  and lost by ~1 ms at 6x4K (tools/probe_i420.py) — two full-res bf16
-  reads + converts cost more than one u8 write + two u8 reads."""
-  if mxu:
+  both chains)."""
+  if dot:
     return _yuv420_phases_dot_bf16(out12)
   u8_y12 = u8_uv12 = out12
   from taichi_image_tpu.ops.color import _YUV_M, _YUV_OFFSET
   n, _, hh, wh = u8_y12.shape
   m, off = _YUV_M, _YUV_OFFSET  # applied to the channel-REVERSED vector
 
-  # Y directly per phase (no (N, 4, 3, hh, wh) yuv intermediate — the
-  # einsum materialized 597 MB at 6x4K); clamp+quantize per phase and
-  # interleave as u8 (exact: interleave is pure movement).
+  # Y directly per phase (no (N, 4, 3, hh, wh) yuv intermediate);
+  # clamp+quantize per phase and interleave as u8 (exact: interleave is
+  # pure movement).
   xy = u8_y12.reshape(n, 4, 3, hh, wh).astype(jnp.float32) / 255.0
   b, g, r = xy[:, :, 2], xy[:, :, 1], xy[:, :, 0]
   y_ph = jnp.minimum(1.0, m[0, 0] * b + m[0, 1] * g + m[0, 2] * r
@@ -1532,38 +1387,11 @@ def yuv420_from_phases_u8(out12, mxu: bool = False):
   return y_u8, uv_u8
 
 
-def _q16_front_available(raw_shape, sample_step):
-  """True when the q16 decode + demosaic kernels can run on this
-  packed12 raw shape (the FRONT of the Camera16 fast path). The q16
-  Reinhard map is not required, so configurations outside the full
-  fast-path gate — resize plans, linear tonemap, color_adapt > 0,
-  gamma > 1.5 — can still ride the kernel front, with the XLA tail
-  consuming lazily-dequantized x12 (round-4 VERDICT next #4).
-
-  TAICHI_IMAGE_TPU_STRICT_F16=1 closes the gate surgically (strict XLA
-  f16 boundary semantics without disabling the other Pallas kernels;
-  TAICHI_IMAGE_TPU_NO_PALLAS also closes it, along with everything
-  else)."""
-  import os as _os
-  if _os.environ.get("TAICHI_IMAGE_TPU_STRICT_F16", "") == "1":
-    return False
-  from taichi_image_tpu.ops.pallas import decode as pl_decode
-  from taichi_image_tpu.ops.pallas import demosaic as pl_dm
-  _, h, wb = raw_shape
-  hh, wh = h // 2, wb // 3
-  return (pl_decode.decode_pallas_available(h, wb)
-          and pl_dm.q16_available(hh, wh, sample_step))
-
-
-def _q16_kernels_available(raw_shape, stride):
-  """True when all three Camera16 fast-path kernels can run on this
-  packed12 raw shape: the q12 decode, the q16 stencil (with sample
-  emission), and the q16 Reinhard map (ops/pallas/q16 module note)."""
-  from taichi_image_tpu.ops.pallas import reinhard as pl_rh
-  _, h, wb = raw_shape
-  hh, wh = h // 2, wb // 3
-  return (_q16_front_available(raw_shape, max(stride // 2, 1))
-          and pl_rh.reinhard_q16_available(hh, wh))
+# Named scopes of the fused step's stages, in pipeline order: a profiler
+# trace of the step attributes each device kernel to one of them
+# (taichi_image_tpu/utils/stages.py).
+STAGES = ("decode", "demosaic", "resize", "meter", "map_max", "finish",
+          "i420")
 
 
 def fused_isp_step(raws, prev, t, gamma, intensity, light_adapt, color_adapt,
@@ -1586,54 +1414,16 @@ def fused_isp_step(raws, prev, t, gamma, intensity, light_adapt, color_adapt,
 
   When ``axis_name`` is given the camera batch axis is assumed sharded
   over that mesh axis and metering completes with collectives.
+
+  Each stage runs under a ``jax.named_scope`` (:data:`STAGES`), so a
+  profiler trace of the step can be attributed per stage.
   """
-  # Camera16 q16 fast path (ops/pallas/q16 module note): the f16
-  # working dtype cannot ride Mosaic kernels directly (no f16 I/O), so
-  # the reference-default pipeline runs on 16-bit fixed-point containers
-  # packed 2-per-i32 — >= f16 precision at every boundary the strict
-  # XLA f16 path materializes f16 (decoded phases BIT-EXACT, x12 at
-  # 2^-17, pre-gamma p at 2^-16 with the max over exact f32 p), final
-  # u8 within <=1 count of the strict path (tests/test_q16.py,
-  # tools/verify_tpu.py on chip). Gated to the reference-default
-  # configuration; everything else falls back to the strict XLA path.
-  # color_adapt: any STATIC float qualifies since round 5 — the q16 map
-  # kernel implements the per-channel adapt chain (ca > 0) directly
-  # (ops/pallas/reinhard._q16_kernel_dma ca_mode); previously ca > 0
-  # fell back to the strict XLA route at ~358 f/s.
-  q16_route = (types.canonical_dtype(work_dtype) == types.f16
-               and fmt == "packed12" and tonemap == "reinhard"
-               and resize_plan is None and stride % 2 == 0
-               and isinstance(color_adapt, float)
-               and isinstance(gamma, float) and 0.0 < gamma <= 1.5
-               and not debug_checks
-               and _q16_kernels_available(raws.shape, stride))
-  # q16 FRONT route (round-4 VERDICT next #4) — REJECTED-BY-DATA as a
-  # default, opt-in via TAICHI_IMAGE_TPU_Q16_FRONT=1: the Pallas
-  # q12-decode + q16-stencil front with an XLA tail consuming lazily-
-  # dequantized x12 is value-correct (<=1 u8 count vs strict on chip,
-  # VERIFY_TPU q16_front_* checks) but LOSES to the strict XLA route on
-  # every config family it covers (tools/probe_q16_front.py, two clean
-  # on-chip sessions, 6x4K f16: resize->1920 x0.75-0.78, linear g=.9
-  # x0.95-0.96, color_adapt=.5 x0.88-0.91) — the dequantized f32 x12
-  # cannot stay fused into the tail's gathers, so the tail moves 2x the
-  # strict path's f16 bytes, eating more than the kernel front saves.
-  # color_adapt > 0 is instead served by the FULL q16 path (the map
-  # kernel's ca_mode, round 5). gamma <= 1.5 for the same reason as the
-  # full fast path: the 1/gamma root's unbounded slope at black
-  # amplifies the 2^-17 absolute x12 grid (measured 5 u8 counts at
-  # gamma=2 on chip, q16_front_gate_gamma2_strict_onchip).
-  import os as _os
-  q16_front = (_os.environ.get("TAICHI_IMAGE_TPU_Q16_FRONT", "") == "1"
-               and not q16_route
-               and types.canonical_dtype(work_dtype) == types.f16
-               and fmt == "packed12" and not debug_checks
-               and isinstance(gamma, float) and 0.0 < gamma <= 1.5
-               and _q16_front_available(
-                   raws.shape,
-                   max(stride // 2, 1)
-                   if (resize_plan is None and stride % 2 == 0) else 0))
-  phases = (None if (q16_route or q16_front)
-            else load_raw_phases(raws, fmt, work_dtype, ids_format))
+  if tonemap not in ("reinhard", "linear"):
+    raise ValueError(f"unknown tonemap {tonemap}")
+  if color_format not in ("rgb", "yuv420"):
+    raise ValueError(f"unknown color_format {color_format!r}")
+  with jax.named_scope("decode"):
+    phases = load_raw_phases(raws, fmt, work_dtype, ids_format)
   if debug_checks:
     # Compiled-in validation (TAICHI_IMAGE_TPU_DEBUG; the reference's
     # ti.init(debug=True) analogue, SURVEY.md §5). The f16/f32 loader
@@ -1645,57 +1435,23 @@ def fused_isp_step(raws, prev, t, gamma, intensity, light_adapt, color_adapt,
           (phases.astype(jnp.float32) >= 0.0).all()
           & (phases.astype(jnp.float32) <= 1.0).all(),
           "decoded CFA values escape [0, 1] — corrupt raw or wrong format")
-  # In the no-resize even-stride path the metering sample grid is emitted
-  # by the demosaic itself (Pallas: in-kernel MXU dots; XLA fallback: a
-  # strided slice) — a strided gather of the finished x12 costs ~13 ms at
-  # 6x4K on TPU.
   wd = types.canonical_dtype(work_dtype)
+  # Without a resize and with an even stride, full-res stride-s pixels
+  # are exactly the phase-(0, 0) channels of x12 at half-res stride s/2:
+  # the demosaic hands out that sample grid beside x12.
   want_sample = resize_plan is None and stride % 2 == 0
-  # Front-fused route (OPT-IN via TAICHI_IMAGE_TPU_FRONT_FUSED=1, off
-  # by default): demosaic + Reinhard map as ONE Pallas pass, with
-  # metering fed by the strided-conv sample pre-pass (see
-  # demosaic_reinhard_front). Probed on chip and REJECTED as the
-  # default — 14.0 vs 7.3 ms/step at 6x4K (tools/probe_front.py): the
-  # fusion saves nothing kernel-to-kernel (the p write dominates; DMA
-  # double-buffering already hid the map's x12 read) and the sample
-  # pre-pass adds ~2 ms. Unsharded no-resize reinhard only.
-  front_fused = False
-  if (want_sample and tonemap == "reinhard" and wd == types.bf16
-      and isinstance(color_adapt, float) and color_adapt == 0.0
-      and axis_name is None):
-    from taichi_image_tpu.ops.pallas import demosaic as _pallas_dm
-    front_fused = _pallas_dm.front_fused_available(
-        phases.shape[-2], phases.shape[-1],
-        in_bf16=phases.dtype == jnp.bfloat16)
-  if q16_route:
-    from taichi_image_tpu.ops.pallas import decode as pl_decode
-    packed = pl_decode.decode12_phases_q16(raws, ids_format)
-    x12, strided_sample = bayer_ops.demosaic_phases_q16(
-        packed, pattern, cc=cc, sample_step=max(stride // 2, 1))
-  elif q16_front:
-    from taichi_image_tpu.ops.pallas import decode as pl_decode
-    from taichi_image_tpu.ops.pallas import q16 as q16_codes
-    packed = pl_decode.decode12_phases_q16(raws, ids_format)
+  with jax.named_scope("demosaic"):
     if want_sample:
-      x12q, strided_sample = bayer_ops.demosaic_phases_q16(
-          packed, pattern, cc=cc, sample_step=max(stride // 2, 1))
+      x12, strided_sample = demosaic_phases(
+          phases, pattern, cc=cc, out_dtype=wd,
+          sample_step=max(stride // 2, 1))
     else:
-      x12q = bayer_ops.demosaic_phases_q16(packed, pattern, cc=cc)
-    # lazy dequantize: fuses into the consuming tail program (see the
-    # q16_front gate comment above)
-    x12 = q16_codes.decode_x12(q16_codes.unpack_channels(x12q))
-  elif front_fused:
-    pass  # demosaic runs fused with the map below
-  elif want_sample:
-    x12, strided_sample = demosaic_phases(
-        phases, pattern, cc=cc, out_dtype=wd,
-        sample_step=max(stride // 2, 1))
-  else:
-    x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd)
+      x12 = demosaic_phases(phases, pattern, cc=cc, out_dtype=wd)
 
   def _meter(strided):
-    m = metering_update_ca(strided, prev, t, axis_name=axis_name,
-                           n_total=n_total)
+    with jax.named_scope("meter"):
+      m = metering_update_ca(strided, prev, t, axis_name=axis_name,
+                             n_total=n_total)
     if debug_checks:
       from jax.experimental import checkify
       checkify.check(
@@ -1703,95 +1459,51 @@ def fused_isp_step(raws, prev, t, gamma, intensity, light_adapt, color_adapt,
           "metering produced non-finite stats — NaN/inf in input frames")
     return m
 
+  def _tonemap(x, new_metrics):
+    if tonemap == "linear":
+      with jax.named_scope("finish"):
+        return linear_apply_ca(x, new_metrics, gamma)
+    with jax.named_scope("map_max"):
+      cast, max_out = reinhard_map_max_ca(x, new_metrics, intensity,
+                                          light_adapt, color_adapt,
+                                          work_dtype)
+    with jax.named_scope("finish"):
+      return reinhard_gamma_ca(cast, max_out, gamma)
+
   if resize_plan is not None:
     size, scale = resize_plan
-    rgb, materialized = _resize_x12(x12, size, scale, work_dtype)
-    if materialized:
-      # the kernel output is an HBM array: the reshape-select subsample
-      # is the right metering source (a plain strided slice of a
-      # materialized array is the minor-dim gather pathology)
-      strided = subsample_hw(rgb, stride, stride)
-    else:
-      # a plain strided slice FUSES into the XLA resize producer (XLA
-      # only computes the sampled positions): measured 1.8 ms faster
-      # than subsample_hw, which forces rgb to be read in full.
-      # subsample_hw wins only on materialized arrays.
-      strided = rgb[:, :, ::stride, ::stride]
-    new_metrics = _meter(strided)
-    if tonemap == "reinhard":
-      out = reinhard_apply_ca(rgb, new_metrics, gamma, intensity,
-                              light_adapt, color_adapt, work_dtype)
-    elif tonemap == "linear":
-      out = linear_apply_ca(rgb, new_metrics, gamma)
-    else:
-      raise ValueError(f"unknown tonemap {tonemap}")
+    with jax.named_scope("resize"):
+      rgb = _resize_from_phases(x12, size, scale, work_dtype)
+    # a plain strided slice fuses into the resize producer: XLA computes
+    # only the sampled positions
+    new_metrics = _meter(rgb[:, :, ::stride, ::stride])
+    out = _tonemap(rgb, new_metrics).reshape(rgb.shape)
   elif stride % 2 != 0:
-    # odd metering stride: fall back to assembling planar first
-    rgb = phases_to_planar(x12, types.canonical_dtype(work_dtype))
-    strided = subsample_hw(rgb, stride, stride)
-    new_metrics = _meter(strided)
-    if tonemap == "reinhard":
-      out = reinhard_apply_ca(rgb, new_metrics, gamma, intensity,
-                              light_adapt, color_adapt, work_dtype)
-    elif tonemap == "linear":
-      out = linear_apply_ca(rgb, new_metrics, gamma)
-    else:
-      raise ValueError(f"unknown tonemap {tonemap}")
+    # odd metering stride: assemble planar first
+    rgb = phases_to_planar(x12, wd)
+    new_metrics = _meter(subsample_hw(rgb, stride, stride))
+    out = _tonemap(rgb, new_metrics).reshape(rgb.shape)
   else:
-    # x12 shares the phase-plane spatial dims (q16 route: phases is None)
-    n, _, hh, wh = (phases if phases is not None else x12).shape
-    # full-res stride-8 pixels are exactly phase (0,0) at half-res stride 4
-    if front_fused:
-      # metrics come from the strided-conv sample pre-pass (one read of
-      # the phase planes); the demosaic + map then run as ONE kernel
-      new_metrics = _meter(bayer_ops.demosaic_samples(
-          phases, pattern, cc=cc, out_dtype=wd,
-          sample_step=max(stride // 2, 1)))
-      cast, max_out = demosaic_reinhard_front(
-          phases, new_metrics, intensity, light_adapt, pattern, cc)
-      out12 = reinhard_gamma_ca(cast, max_out, gamma)
-    elif tonemap == "reinhard":
-      new_metrics = _meter(strided_sample)
-      if q16_route:
-        from taichi_image_tpu.ops.pallas.reinhard import (
-            reinhard_map_q16_dma)
-        cast, max_out = reinhard_map_q16_dma(x12, new_metrics, intensity,
-                                             light_adapt,
-                                             color_adapt=color_adapt)
-        if axis_name is not None:
-          max_out = jax.lax.pmax(max_out, axis_name)
-      else:
-        cast, max_out = reinhard_map_max_ca(
-            x12.reshape(n, 4, 3, hh, wh), new_metrics, intensity,
-            light_adapt, color_adapt, work_dtype)
-      out12 = reinhard_gamma_ca(cast, max_out, gamma)
-    elif tonemap == "linear":
-      new_metrics = _meter(strided_sample)
-      out12 = linear_apply_ca(x12.reshape(n, 4, 3, hh, wh), new_metrics,
-                              gamma)
-    else:
-      raise ValueError(f"unknown tonemap {tonemap}")
+    n, _, hh, wh = phases.shape
+    new_metrics = _meter(strided_sample)
+    out12 = _tonemap(x12.reshape(n, 4, 3, hh, wh),
+                     new_metrics).reshape(n, 12, hh, wh)
     if color_format == "yuv420":
-      # gamma -> u8 FIRST (one materialized 1-byte phase array read by
-      # both yuv chains), transform the u8 in phase space, convert —
-      # no interleaved RGB intermediate. The barrier-recompute
-      # alternative (gamma recomputed inside the Y and chroma chains
-      # from the bf16 map output) was raced same-run and LOSES by
-      # ~1 ms at 6x4K: two full bf16 reads + converts cost more than
-      # one u8 write + two u8 reads (tools/probe_i420.py: composed
-      # 10.21 vs barrier 11.21, anchor 7.26).
-      u8_12 = _transform_phases(out12.reshape(n, 12, hh, wh), transform)
-      return new_metrics, yuv420_from_phases_u8(u8_12,
-                                                mxu=wd == types.bf16)
+      # u8 first (one 1-byte phase array read by both I420 chains), then
+      # the transform in phase space, then the conversion: no interleaved
+      # RGB intermediate
+      with jax.named_scope("i420"):
+        u8_12 = _transform_phases(out12, transform)
+        return new_metrics, yuv420_from_phases_u8(u8_12,
+                                                  dot=wd == types.bf16)
     # transform in phase space (see _transform_phases) then interleave
-    out = planar_from_phases_transformed(out12.reshape(n, 12, hh, wh),
-                                         transform)
+    with jax.named_scope("finish"):
+      out = planar_from_phases_transformed(out12, transform)
     transform = ImageTransform.none
   out = _transform_planar(out, transform)
   if color_format == "yuv420":
-    return new_metrics, yuv420_from_planar_u8(out)
-  if color_format != "rgb":
-    raise ValueError(f"unknown color_format {color_format!r}")
+    with jax.named_scope("i420"):
+      return new_metrics, yuv420_from_planar_u8(out)
   return new_metrics, out
 
 
@@ -1834,6 +1546,6 @@ def camera_isp(name: str, dtype=types.f32):
 
 Camera16 = camera_isp("Camera16", types.f16)
 Camera32 = camera_isp("Camera32", types.f32)
-# TPU-preferred working dtype (reference has no bf16; SURVEY.md §7 notes
+# bf16 working dtype (reference has no bf16; SURVEY.md §7 notes
 # f16-for-parity / bf16-for-speed)
 CameraBF16 = camera_isp("CameraBF16", types.bf16)

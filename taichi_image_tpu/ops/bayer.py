@@ -6,8 +6,8 @@ pixel, bayer.py:30-55,137-155), renormalizing dropped out-of-bounds taps at
 image borders per channel (bayer.py:145-151), with an optional fused 3x3
 color-correction matrix (bayer.py:127-130,152-153).
 
-TPU-native formulation
-----------------------
+Phase-plane formulation
+-----------------------
 Instead of a scalar gather loop per pixel, the CFA is split into its four
 half-resolution phase planes; every full-resolution 5x5 diamond tap then
 lands on one phase plane at an offset in {-1,0,1}, so the whole demosaic is
@@ -222,12 +222,9 @@ def _interleave_table():
 
 
 # ---------------------------------------------------------------------------
-# Planar phase-plane pipeline (the TPU-fast path).
+# Planar phase-plane pipeline.
 #
-# TPU layouts tile the two minor dimensions (sublanes x 128 lanes); any
-# array with a tiny minor dimension (RGB channels = 3, camera batch = 6)
-# pads catastrophically (measured 21x memory/bandwidth expansion on v5e).
-# The fast path therefore keeps images PLANAR end to end:
+# The pipeline keeps images PLANAR end to end:
 #   CFA phase planes (N, 4, H/2, W/2) -> demosaic -> (N, 12, H/2, W/2)
 #   (4 output phases x RGB) -> tonemap in phase form -> planar u8.
 # Interleaved HWC exists only at API boundaries.
@@ -236,10 +233,8 @@ def _interleave_table():
 
 def subsample_hw(x, sr: int, sc: int):
   """``x[..., ::sr, ::sc]`` with identical values, via free minor-dim
-  reshapes when the dims divide: XLA lowers strided slices on the two
-  minor (tiled) dims as pathological gathers on TPU (~13-158 ms at 4K
-  scales, see docs/PERFORMANCE.md); the reshape-select form compiles to
-  a cheap windowed copy."""
+  reshapes when the dims divide (a windowed copy), else a strided
+  slice."""
   h, w = x.shape[-2], x.shape[-1]
   if sr <= 0 or sc <= 0 or h % sr or w % sc:
     return x[..., ::sr, ::sc]
@@ -251,12 +246,8 @@ def cfa_phases(cfa):
   """(N, H, W) CFA -> (N, 4, H/2, W/2) phase planes, in-phase order
   (row%2)*2 + col%2.
 
-  Column parity splits via a free minor-dim-2 reshape instead of
-  lane-stride-2 slices: XLA lowers stride-2 lane slices of a full-res
-  array as a pathological gather (~158 ms for one 6x4K f32 frame set,
-  measured on v5e — 18x slower than this formulation, ~8.9 ms), and the
-  cost is the same for u16/f32 alike. Row parity stays a sublane-stride
-  slice (cheap)."""
+  Column parity splits via a free minor-dim-2 reshape; row parity is a
+  stride-2 slice."""
   n, h, w = cfa.shape
   b = cfa.reshape(n, h, w // 2, 2)
   even, odd = b[..., 0], b[..., 1]
@@ -272,8 +263,8 @@ def edge_renorm_factor(weights, hh, wh, is_top=True, is_bot=True):
   are separable everywhere except the corners, where the correction makes
   the combined factor EXACTLY full/corner regardless of the row/column
   vector values (so narrow images, wh == 2, stay exact). One fusable
-  multiply instead of `.at[...]` dynamic-update-slices, which materialize
-  full-buffer copies on TPU.
+  multiply instead of `.at[...]` dynamic-update-slices, which
+  materialize full-buffer copies.
 
   ``is_top``/``is_bot`` may be Python bools or traced scalars (spatial
   sharding passes axis_index-derived gates so row strips fire only at the
@@ -307,285 +298,54 @@ def edge_renorm_factor(weights, hh, wh, is_top=True, is_bot=True):
   return f
 
 
-def _stencil_finish_spec(weights, hh, wh, cc, out_dtype, top_row=0,
-                         bot_row=None):
-  """Static constants for the Pallas stencil's fused finish stage: the
-  same per-channel border factors edge_renorm_factor builds (full/strip
-  sums, corner corrections) plus the optional CCM, as numpy/floats.
-
-  ``top_row``/``bot_row``: kernel-frame row indices where the top/bottom
-  drop-tap strips fire (defaults: rows 0 and hh-1 — a whole image).
-  Row-band callers pass the band-local position of the TRUE image edge
-  (or -1 so the strip never fires): a halo'd interior band has no image
-  edge at all, the first band's image top sits at kernel row 1 (below
-  its zero halo row), etc. Column factors always fire (wh is the full
-  image width in every band)."""
-  if bot_row is None:
-    bot_row = hh - 1
-  full, top, bottom, left, right = _edge_sums(weights, hh, wh)
-  t_mid, b_mid = top[:, 1], bottom[:, 1]
-  l_mid, r_mid = left[:, 1], right[:, 1]
-  tl, tr_ = top[:, 0], top[:, -1]
-  bl, br = bottom[:, 0], bottom[:, -1]
-  topf, botf = full / t_mid, full / b_mid
-  leftf, rightf = full / l_mid, full / r_mid
-  cvals = np.stack([
-      (full / tl) / (topf * leftf),
-      (full / tr_) / (topf * rightf),
-      (full / bl) / (botf * leftf),
-      (full / br) / (botf * rightf),
-  ]).astype(np.float32)
-  ccm = None if cc is None else np.array(cc, np.float32).reshape(3, 3)
-  return dict(hh=hh, wh=wh, top_row=int(top_row), bot_row=int(bot_row),
-              topf=topf.astype(np.float32),
-              botf=botf.astype(np.float32),
-              leftf=leftf.astype(np.float32),
-              rightf=rightf.astype(np.float32), cvals=cvals, cc=ccm,
-              out_dtype=jnp.dtype(out_dtype))
-
-
 def _edge_renorm(x, weights, hh, wh):
   """Apply exact drop-tap border renormalization to interior-normalized
   (num/full) phase output."""
   return x * edge_renorm_factor(weights, hh, wh)
 
 
-def edge_renorm_factor_sampled(weights, hh, wh, step):
-  """:func:`edge_renorm_factor` evaluated on the (::step, ::step) sample
-  grid, replicating its exact f32 arithmetic (same divisions, same
-  multiply chains) so that ``x12[..., ::step, ::step]`` equals the
-  sampled path bitwise. Built in numpy (static edges), returned as a
-  (1, 12, hs, ws) jnp constant-expression."""
-  full, top, bottom, left, right = _edge_sums(weights, hh, wh)
-  t_mid, b_mid = top[:, 1], bottom[:, 1]
-  l_mid, r_mid = left[:, 1], right[:, 1]
-  tl, tr_ = top[:, 0], top[:, -1]
-  bl, br = bottom[:, 0], bottom[:, -1]
-
-  hs, ws = -(-hh // step), -(-wh // step)
-  rows = np.arange(hs) * step
-  cols = np.arange(ws) * step
-  on_top = rows == 0
-  on_bot = rows == hh - 1
-  one = np.float32(1.0)
-  rvf = (np.where(on_top[None, :], (full / t_mid)[:, None], one)
-         * np.where(on_bot[None, :], (full / b_mid)[:, None], one))
-  cv_full = np.ones((12, wh), np.float32)
-  cv_full[:, 0] = full / l_mid
-  cv_full[:, -1] = full / r_mid
-  cv = cv_full[:, cols]
-  f = rvf[:, :, None] * cv[:, None, :]
-  for corner, rvec, rmask, cpos in (
-      (tl, full / t_mid, on_top, 0), (tr_, full / t_mid, on_top, wh - 1),
-      (bl, full / b_mid, on_bot, 0), (br, full / b_mid, on_bot, wh - 1)):
-    cval = (full / corner) / (rvec * cv_full[:, cpos])
-    mask = rmask[:, None] & (cols == cpos)[None, :]
-    f = np.where(mask[None, :, :], f * cval[:, None, None], f)
-  return jnp.asarray(f[None].astype(np.float32))
-
-
 def demosaic_phases(phases, pattern: BayerPattern, cc=None, method="mhc",
-                    out_dtype=jnp.float32, backend="auto",
-                    sample_step: int = 0):
+                    out_dtype=jnp.float32, sample_step: int = 0):
   """Demosaic normalized phase planes (N, 4, hh, wh) float -> clamped
   (N, 12, hh, wh) phase-RGB in [0, 1].
 
   Same math as the reference stencil (bayer.py:137-155) with exact border
   renormalization; the 12-channel layout is out_phase*3 + rgb with phases
-  ordered (0,0), (1,0), (0,1), (1,1) in (row, col) parity.
-
-  ``backend``: 'auto' uses the Pallas TPU stencil kernel when available
-  (ops/pallas/demosaic.py — avoids XLA's pathologically padded conv
-  layouts), else the XLA conv; 'xla' / 'pallas' force a path.
+  ordered (0,0), (1,0), (0,1), (1,1) in (row, col) parity. The stencil is
+  one 4 -> 12 channel 3x3 convolution at f32 ``HIGHEST`` precision.
 
   ``sample_step`` > 0: additionally return
   ``out[:, 0:3, ::step, ::step]`` (the metering sample grid) as
-  ``(out, sample)``. On the Pallas path the sample is emitted by the
-  kernel via MXU one-hot dots — a strided read of the finished x12 costs
-  ~13 ms at 6x4K (minor-dim gather on TPU), the in-kernel emission is
-  free. Values are bitwise-identical either way.
+  ``(out, sample)``.
   """
-  if backend not in ("auto", "pallas", "xla"):
-    raise ValueError(f"unknown demosaic backend {backend!r} "
-                     "(expected 'auto', 'pallas', or 'xla')")
   n, _, hh, wh = phases.shape
   weights = _demosaic_tables(pattern, method)
-
-  from taichi_image_tpu.ops.pallas import demosaic as pallas_dm
-  use_pallas = backend == "pallas" or (
-      backend == "auto" and pallas_dm.pallas_available(hh, wh))
-
-  def finish(o):
-    """Shared cc+clip+cast tail; ``o`` has 3*k channels."""
-    if cc is not None:
-      ccm = jnp.asarray(np.array(cc, np.float32).reshape(3, 3))
-      k = o.shape[1] // 3
-      x = o.reshape(o.shape[0], k, 3, o.shape[2], o.shape[3])
-      x = jnp.einsum("npchw,dc->npdhw", x, ccm,
-                     precision=jax.lax.Precision.HIGHEST)
-      o = x.reshape(o.shape[0], k * 3, o.shape[2], o.shape[3])
-    return jnp.clip(o, 0.0, 1.0).astype(out_dtype)
-
-  samp = None
-  if use_pallas:
-    # bf16 phases go to the kernel unconverted (in-kernel bf16->f32 is
-    # exact and halves the halo-DMA traffic); everything else pre-casts
-    in_bf16 = phases.dtype == jnp.bfloat16
-    ph_in = phases if in_bf16 else phases.astype(jnp.float32)
-    # bf16/f32 output fuses renorm+CCM+clip+cast IN-KERNEL (emitting
-    # final x12 directly skips the f32-numerator round trip, ~1.2 GB at
-    # 6x4K); f16 keeps the XLA finish (Mosaic cannot emit f16)
-    fuse = jnp.dtype(out_dtype) in (jnp.dtype(jnp.bfloat16),
-                                    jnp.dtype(jnp.float32))
-    fin = (_stencil_finish_spec(weights, hh, wh, cc, out_dtype)
-           if fuse else None)
-    # out_bf16 sizes the OUTPUT double-buffers: true only for an actual
-    # bf16 out dtype (a fused f32 finish still writes 4-byte blocks)
-    out_bf16 = fuse and jnp.dtype(out_dtype) == jnp.dtype(jnp.bfloat16)
-    tiles_s = (pallas_dm.tiling_for(hh, wh, sample_step, in_bf16=in_bf16,
-                                    out_bf16=out_bf16)
-               if sample_step else None)
-    if tiles_s is not None:
-      num16, snum = pallas_dm.demosaic_stencil(
-          ph_in, weights, *tiles_s, sample_step=sample_step, finish=fin)
-      if fuse:
-        samp = snum.astype(out_dtype)  # kernel emits FINAL f32 samples
-      else:
-        samp = finish(snum * edge_renorm_factor_sampled(
-            weights, hh, wh, sample_step)[:, 0:3])
-    else:
-      tiles = pallas_dm.tiling_for(hh, wh, in_bf16=in_bf16,
-                                   out_bf16=out_bf16)
-      assert tiles is not None, f"no pallas tiling for {(hh, wh)}"
-      num16 = pallas_dm.demosaic_stencil(ph_in, weights, *tiles,
-                                         finish=fin)
-    out = num16 if fuse else finish(_edge_renorm(num16, weights, hh, wh))
-  elif hh >= 2 and wh >= 2:
-    num = jax.lax.conv_general_dilated(
-        phases.astype(jnp.float32), jnp.asarray(weights), (1, 1),
-        ((1, 1), (1, 1)), dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
+  num = jax.lax.conv_general_dilated(
+      phases.astype(jnp.float32), jnp.asarray(weights), (1, 1),
+      ((1, 1), (1, 1)), dimension_numbers=("NCHW", "OIHW", "NCHW"),
+      precision=jax.lax.Precision.HIGHEST,
+      preferred_element_type=jnp.float32)
+  if hh >= 2 and wh >= 2:
     full = weights.sum(axis=(1, 2, 3))
     num16 = num * jnp.asarray(1.0 / full, jnp.float32)[None, :, None, None]
-    out = finish(_edge_renorm(num16, weights, hh, wh))
+    out = _edge_renorm(num16, weights, hh, wh)
   else:
-    num = jax.lax.conv_general_dilated(
-        phases.astype(jnp.float32), jnp.asarray(weights), (1, 1),
-        ((1, 1), (1, 1)), dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
     ones = jnp.ones((1, 4, hh, wh), jnp.float32)
     denom = jax.lax.conv_general_dilated(
         ones, jnp.asarray(weights), (1, 1), ((1, 1), (1, 1)),
-        dimension_numbers=("NCHW", "OIHW", "NCHW"))
-    out = finish(num / denom)
-  if not sample_step:
-    return out
-  if samp is None:
-    samp = subsample_hw(out[:, 0:3], sample_step, sample_step)
-  return out, samp
-
-
-def demosaic_phases_q16(packed, pattern: BayerPattern, cc=None,
-                        method="mhc", sample_step: int = 0,
-                        interpret: bool = False):
-  """Camera16 fast-path demosaic on q16 containers (ops/pallas/q16):
-  (N, 2, hh, wh) i32 q12-packed raw phase codes -> (N, 6, hh, wh) i32
-  q16-packed final x12 codes, with border renorm + optional CCM + clip
-  fused in-kernel (same math as :func:`demosaic_phases` with a bf16/f32
-  working dtype — reference bayer.py:137-155 stencil + camera_isp.py
-  CCM fold). ``sample_step`` > 0 additionally returns the metering
-  sample grid as exact f32 of the DEQUANTIZED output codes.
-
-  TPU-only (the caller gates on ops.pallas.demosaic.q16_available);
-  ``interpret=True`` runs the kernel in interpreter mode for CPU tests.
-  """
-  n, _, hh, wh = packed.shape
-  weights = _demosaic_tables(pattern, method)
-  from taichi_image_tpu.ops.pallas import demosaic as pallas_dm
-  tiles = pallas_dm.q16_tiling(hh, wh, sample_step)
-  assert tiles is not None, f"no q16 tiling for {(hh, wh, sample_step)}"
-  fin = _stencil_finish_spec(weights, hh, wh, cc, jnp.float32)
-  return pallas_dm.demosaic_stencil(packed, weights, *tiles,
-                                    interpret=interpret,
-                                    sample_step=sample_step, finish=fin)
-
-
-def _samples_shift(phases, weights, s, hh, wh):
-  """Sample-grid demosaic numerators via per-tap offset slices +
-  reshape-select subsample (no convolution op): each tap reads the
-  zero-padded phase planes at its (u, v) offset, subsamples FIRST
-  (small), converts, and accumulates in f32. Offset slices are
-  contiguous (not the strided-lane gather pathology); the subsample is
-  the minor-dim reshape trick (subsample_hw)."""
-  padded = jnp.pad(phases, ((0, 0), (0, 0), (1, 1), (1, 1)))
-  out = []
-  for oc in range(3):
-    acc = None
-    for q in range(4):
-      for u in range(3):
-        for v in range(3):
-          wgt = float(weights[oc, q, u, v])
-          if wgt == 0.0:
-            continue
-          tap = subsample_hw(padded[:, q, u:u + hh, v:v + wh], s, s)
-          tap = tap.astype(jnp.float32) * wgt
-          acc = tap if acc is None else acc + tap
-    out.append(acc)
-  return jnp.stack(out, axis=1)
-
-
-def demosaic_samples(phases, pattern: BayerPattern, cc=None, method="mhc",
-                     out_dtype=jnp.float32, sample_step: int = 4,
-                     formulation: str = "conv"):
-  """Metering-sample pre-pass: the demosaic evaluated ONLY at the
-  ``(::step, ::step)`` grid of output channels 0..2, via a strided
-  convolution (the stride makes XLA compute just the sampled positions —
-  ~1/step² of the taps, one read of the phase planes).
-
-  Same per-sample arithmetic as ``demosaic_phases(..., sample_step)``'s
-  second return (renorm via edge_renorm_factor_sampled, CCM, clip, cast)
-  — the tap accumulation may associate differently from the stencil
-  kernel's sequential order (f32 ulps; metering stats agree to ~1e-7
-  relative). Exists so the front-fused demosaic+Reinhard kernel
-  (ops/pallas/demosaic.demosaic_reinhard_stencil) can have its metrics
-  BEFORE the main stencil runs — the kernel's own sample emission would
-  be circular there.
-
-  ``formulation``: 'conv' (strided lax.conv, default) or 'shift'
-  (per-tap offset slices + reshape-select subsample, summed explicitly
-  — the fallback if the conv hits XLA's pathological channel-minor
-  convolution layouts on TPU; same values up to f32 sum association).
-  """
-  n, _, hh, wh = phases.shape
-  s = sample_step
-  weights = _demosaic_tables(pattern, method)
-  if formulation == "shift":
-    num = _samples_shift(phases, weights, s, hh, wh)
-  elif phases.dtype == jnp.bfloat16:
-    # bf16 operands are EXACT here: the phase values ARE bf16 data and
-    # the MHC/bilinear weights are dyadic rationals n/16 (<= 4 mantissa
-    # bits); products are exact in the MXU's f32 accumulation. Avoids
-    # materializing a full f32 copy of the phase planes for the convert.
-    num = jax.lax.conv_general_dilated(
-        phases, jnp.asarray(weights[:3], jnp.bfloat16), (s, s),
-        ((1, 1), (1, 1)), dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        preferred_element_type=jnp.float32)
-  else:
-    num = jax.lax.conv_general_dilated(
-        phases.astype(jnp.float32), jnp.asarray(weights[:3]), (s, s),
-        ((1, 1), (1, 1)), dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
-  full3 = weights[:3].sum(axis=(1, 2, 3))
-  num16 = num * jnp.asarray(1.0 / full3, jnp.float32)[None, :, None, None]
-  samp = num16 * edge_renorm_factor_sampled(weights, hh, wh, s)[:, 0:3]
+        dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=jax.lax.Precision.HIGHEST)
+    out = num / denom
   if cc is not None:
     ccm = jnp.asarray(np.array(cc, np.float32).reshape(3, 3))
-    samp = jnp.einsum("nchw,dc->ndhw", samp, ccm,
-                      precision=jax.lax.Precision.HIGHEST)
-  return jnp.clip(samp, 0.0, 1.0).astype(out_dtype)
+    x = out.reshape(n, 4, 3, hh, wh)
+    x = jnp.einsum("npchw,dc->npdhw", x, ccm,
+                   precision=jax.lax.Precision.HIGHEST)
+    out = x.reshape(n, 12, hh, wh)
+  out = types.store_as(jnp.clip(out, 0.0, 1.0), out_dtype)
+  if not sample_step:
+    return out
+  return out, subsample_hw(out[:, 0:3], sample_step, sample_step)
 
 
 @cache
@@ -603,10 +363,7 @@ def phases_to_plane(x4, dtype=None):
 
   One 6-d transpose moving the (row, col) parity dims into interleaving
   positions; the final reshape is a free C-order merge. Exact (pure data
-  movement, no dtype roundtrip). Measured at 6x4K for the 12-channel
-  variant: 3.1 ms vs 5.6 ms for stack+reshape interleaves and 16.2 ms
-  for the round-1 one-hot stride-2 transposed conv
-  (tools/probe_interleave.py)."""
+  movement, no dtype roundtrip)."""
   n, _, hh, wh = x4.shape
   x = x4.reshape(n, 2, 2, hh, wh)        # (n, pc, pr, hh, wh)
   t = x.transpose(0, 3, 2, 4, 1)         # (n, hh, pr, wh, pc)
@@ -615,8 +372,7 @@ def phases_to_plane(x4, dtype=None):
 
 def phases_to_planar(x12, dtype=None):
   """(N, 12, hh, wh) phase-RGB -> full-res planar (N, 3, H, W) via a
-  single 6-d transpose (exact; see :func:`phases_to_plane` for the perf
-  note)."""
+  single 6-d transpose (exact; see :func:`phases_to_plane`)."""
   n, _, hh, wh = x12.shape
   x = x12.reshape(n, 2, 2, 3, hh, wh)    # (n, pc, pr, c, hh, wh)
   t = x.transpose(0, 3, 4, 2, 5, 1)      # (n, c, hh, pr, wh, pc)
@@ -629,16 +385,8 @@ def phases_to_planar_stack(x12, dtype=None):
   ``stack(..., axis=-1).reshape``, sublane as ``axis=-2`` — the
   windowed-copy pattern :func:`subsample_hw` exploits in reverse).
 
-  Bitwise-equal to :func:`phases_to_planar`; which form is faster is
-  CONTEXT-dependent on this toolchain: inside the 8K banded finish
-  programs (u8, fused with the quantize producer) the stack form moves
-  the set at 142.8 ms vs the 6-d transpose's 208.8 (round 4,
-  tools/probe_large2.py close — the transpose family measured ~22 GB/s
-  there), while the 4K FUSED step's tail (in-program producers) keeps
-  the transpose: 7.29 vs 9.68 ms/step (tools/probe_interleave4k.py),
-  consistent with the round-1 standalone probe (3.1 vs 5.6 ms,
-  tools/probe_interleave.py). Each call site carries its measured
-  choice."""
+  Bitwise-equal to :func:`phases_to_planar`; the banded drivers'
+  finish programs use this form."""
   n, _, hh, wh = x12.shape
   x = x12.reshape(n, 2, 2, 3, hh, wh)    # (n, pc, pr, c, hh, wh)
 
@@ -711,8 +459,8 @@ def bayer_to_rgb_batch(bayer,
                        correct_colors=None,
                        dtype=None,
                        method: str = "mhc"):
-  """Batched demosaic: (N, H, W) -> (N, H, W, 3). TPU-native extension used
-  by the fused multi-camera ISP step."""
+  """Batched demosaic: (N, H, W) -> (N, H, W, 3). Extension used by the
+  fused multi-camera ISP step."""
   if bayer.ndim != 3:
     raise ValueError(
         f"expected batch of mono bayer images, got shape {bayer.shape}")

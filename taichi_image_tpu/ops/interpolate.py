@@ -166,8 +166,8 @@ def resize_bilinear(src, size, scale=None, dtype=None):
 
 
 def resize_nearest(src, size, scale=None, dtype=None):
-  """Nearest-neighbor resize (cheap mode named in BASELINE.json; the
-  reference has no explicit NN kernel)."""
+  """Nearest-neighbor resize (a cheap mode; the reference has no
+  explicit NN kernel)."""
   in_dtype = types.dtype_of(src)
   out_dtype = in_dtype if dtype is None else types.canonical_dtype(dtype)
   size = (int(size[0]), int(size[1]))

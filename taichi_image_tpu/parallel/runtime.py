@@ -40,8 +40,7 @@ def device_count(backend: Optional[str] = None) -> int:
 def make_camera_mesh(n_devices: Optional[int] = None,
                      axis_name: str = CAMERA_AXIS) -> jax.sharding.Mesh:
   """1-D mesh over the camera/batch axis — the data-parallel axis of the
-  ISP (SURVEY.md §2.9: camera/frame sharding across chips). Collectives
-  over this axis ride ICI within a pod slice."""
+  ISP (SURVEY.md §2.9: camera/frame sharding across devices)."""
   devs = jax.devices()
   if n_devices is not None:
     devs = devs[:n_devices]
@@ -85,7 +84,7 @@ class DispatchQueue:
 
     def _record_and_init():
       # the worker records its own ident — no reliance on the private
-      # ThreadPoolExecutor._threads attribute (round-2 VERDICT weak #5)
+      # ThreadPoolExecutor._threads attribute
       cls._worker_ident = threading.get_ident()
       init_fn()
 

@@ -1,13 +1,13 @@
-"""Camera-axis sharding of the fused ISP step over a TPU mesh.
+"""Camera-axis sharding of the fused ISP step over a device mesh.
 
 The reference processes N cameras with a host loop of per-frame kernel
 launches on one GPU (camera_isp.py:399-401), sharing one metering state
-computed from all frames (camera_isp.py:168-175). The TPU-native
-counterpart (SURVEY.md §2.9, §7 step 4): cameras are placed along a 1-D
-``Mesh`` axis with ``NamedSharding``; the fused per-frame step runs under
-``shard_map`` so each chip processes its cameras locally, and the ONE true
+computed from all frames (camera_isp.py:168-175). The counterpart here
+(SURVEY.md §2.9, §7 step 4): cameras are placed along a 1-D ``Mesh`` axis
+with ``NamedSharding``; the fused per-frame step runs under ``shard_map``
+so each device processes its cameras locally, and the ONE true
 collective in the system — the shared exposure metering reduction — is a
-pmin/pmax/psum over the camera axis riding ICI.
+pmin/pmax/psum over the camera axis.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Spatial (intra-frame) sharding: split each image's ROWS across chips
+"""Spatial (intra-frame) sharding: split each image's ROWS across devices
 with halo exchange at tile borders.
 
-This is the TPU counterpart of "sequence parallelism" for the ISP
-(SURVEY.md §2.9/§5): one 4K frame fits one chip, but larger frames (or
+This is the ISP's counterpart of "sequence parallelism"
+(SURVEY.md §2.9/§5): one 4K frame fits one device, but larger frames (or
 lower latency per frame) split the height axis over the mesh. The 5x5
 demosaic stencil needs a 2-pixel halo at full resolution = ONE row of each
 half-res phase plane, exchanged with mesh neighbors via ``ppermute``
@@ -74,14 +74,8 @@ def _exchange_row_halos(phases, axis_name):
 
 def _demosaic_local(phases_local, pattern, cc, method, axis_name):
   """Demosaic a row shard: halo exchange + local stencil + edge renorm
-  gated to the GLOBAL top/bottom shards only.
-
-  On TPU the per-shard stencil runs through the Pallas kernel (the XLA
-  conv lowering pads channel-minor outputs ~10x; docs/PERFORMANCE.md):
-  the exchanged halo rows ride along as input rows 0 and hh_l+1, whose
-  output rows are discarded — interior rows see identical neighborhoods
-  either way (pinned by tests/test_spatial.py::test_demosaic_local_
-  stencil_matches_conv in interpret mode).
+  gated to the GLOBAL top/bottom shards only. The exchanged halo rows
+  give the rows-VALID conv its context rows.
   """
   n, _, hh_l, wh = phases_local.shape
   weights = _demosaic_tables(pattern, method)
@@ -92,20 +86,13 @@ def _demosaic_local(phases_local, pattern, cc, method, axis_name):
         "row shards must have at least 3 half-res rows (got "
         f"{hh_l}; use fewer row shards or larger frames)")
   full = weights.sum(axis=(1, 2, 3))
-
-  from taichi_image_tpu.ops.pallas import demosaic as pallas_dm
-  if pallas_dm.pallas_available(hh_l + 2, wh):
-    tiles = pallas_dm.tiling_for(hh_l + 2, wh)
-    num16 = pallas_dm.demosaic_stencil(padded, weights, *tiles)
-    out = num16[:, :, 1:-1, :]
-  else:
-    num = jax.lax.conv_general_dilated(
-        padded, jnp.asarray(weights), (1, 1),
-        ((0, 0), (1, 1)),  # rows VALID (halos provide context), cols pad
-        dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=jnp.float32)
-    out = num * jnp.asarray(1.0 / full, jnp.float32)[None, :, None, None]
+  num = jax.lax.conv_general_dilated(
+      padded, jnp.asarray(weights), (1, 1),
+      ((0, 0), (1, 1)),  # rows VALID (halos provide context), cols pad
+      dimension_numbers=("NCHW", "OIHW", "NCHW"),
+      precision=jax.lax.Precision.HIGHEST,
+      preferred_element_type=jnp.float32)
+  out = num * jnp.asarray(1.0 / full, jnp.float32)[None, :, None, None]
 
   idx = jax.lax.axis_index(axis_name)
   n_shards = jax.lax.axis_size(axis_name)
@@ -126,7 +113,7 @@ def _demosaic_local(phases_local, pattern, cc, method, axis_name):
 def demosaic_phases_spatial(phases, mesh: Mesh, pattern, cc=None,
                             method="mhc", axis_name: str = ROW_AXIS):
   """Demosaic (N, 4, hh, wh) phase planes with hh sharded over
-  ``axis_name``: halo exchange over ICI + local stencil."""
+  ``axis_name``: halo exchange between neighbours + local stencil."""
   local = partial(_demosaic_local, pattern=pattern, cc=cc, method=method,
                   axis_name=axis_name)
   f = jax.shard_map(local, mesh=mesh,
@@ -243,7 +230,7 @@ def make_spatial_isp_step(mesh: Mesh, *, fmt: str = "packed12",
                           transform: ImageTransform = ImageTransform.none,
                           color_format: str = "rgb",
                           axis_name: str = ROW_AXIS):
-  """Whole-rig fused step with each frame's ROWS sharded across chips.
+  """Whole-rig fused step with each frame's ROWS sharded across devices.
 
   step(raws, prev, t, gamma, intensity, light_adapt, color_adapt)
     -> (metrics, planar u8 (N, 3, H', W') row-sharded)
@@ -257,8 +244,8 @@ def make_spatial_isp_step(mesh: Mesh, *, fmt: str = "packed12",
   a ppermute halo exchange of the demosaiced phases.
 
   ``transform`` != none is applied OUTSIDE the shard_map on the sharded
-  output — GSPMD repartitions the permuted array (collectives over ICI)
-  rather than hand-reversing shard order.
+  output — GSPMD repartitions the permuted array (collectives between
+  devices) rather than hand-reversing shard order.
 
   ``color_format='yuv420'`` returns planar I420 ``(Y (N, H', W') row-
   sharded, UV (N, 2, H'/2, W'/2) row-sharded)`` instead. The 2x2 chroma
@@ -319,14 +306,14 @@ def _build_local_step(fmt, ids_format, work_dtype, pattern, cc, stride,
   factories. ``resize_cfg`` = (size, (sy, sx), h_out_local, halo_lo,
   halo_hi, full_h) or None. ``color_format='yuv420'`` converts shard-
   locally (legal because 2x2 chroma blocks never straddle shards)."""
-  mxu = types.canonical_dtype(work_dtype) == types.bf16
+  dot = types.canonical_dtype(work_dtype) == types.bf16
 
   def local_step(raws, prev, t, gamma, intensity, light_adapt,
                  color_adapt):
     phases = load_raw_phases(raws, fmt, work_dtype, ids_format)
     x12 = _demosaic_local(phases.astype(jnp.float32), pattern, cc,
                           "mhc", row_axis)
-    x12 = x12.astype(types.canonical_dtype(work_dtype))
+    x12 = types.store_as(x12, work_dtype)
     n, _, hh_l, wh = x12.shape
     if resize_cfg is not None:
       size, syx, hol, halo_lo, halo_hi, full_h = resize_cfg
@@ -362,7 +349,7 @@ def _build_local_step(fmt, ids_format, work_dtype, pattern, cc, stride,
                               gamma)
     if color_format == "yuv420":
       return metrics, yuv420_from_phases_u8(
-          out12.reshape(n, 12, hh_l, wh), mxu=mxu)
+          out12.reshape(n, 12, hh_l, wh), dot=dot)
     out = phases_to_planar(out12.reshape(n, 12, hh_l, wh))
     return metrics, out
 
@@ -373,7 +360,7 @@ def _finish_output(jitted, transform: ImageTransform, to_yuv=False):
   """Wrap a sharded step with the output transform (and, when the
   transform blocks shard-local conversion, the I420 conversion) applied
   OUTSIDE the shard_map: GSPMD repartitions the permuted array
-  (collectives over ICI on hardware) instead of hand-reversing shard
+  (collectives between devices) instead of hand-reversing shard
   order."""
   if transform == ImageTransform.none and not to_yuv:
     return jitted

@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from taichi_image_tpu.ops import bayer
+from taichi_image_tpu.utils.device import enable_compile_cache
 from taichi_image_tpu.utils.image import psnr
 
 
@@ -93,6 +94,7 @@ def main(argv=None):
                       help="write each demosaiced result as DIR/"
                       "{pattern}_{method}.png")
   args = parser.parse_args(argv)
+  enable_compile_cache()
 
   img = load_rgb(args.image)
   h, w = (img.shape[0] // 2) * 2, (img.shape[1] // 2) * 2

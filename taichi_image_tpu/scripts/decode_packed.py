@@ -15,6 +15,7 @@ import numpy as np
 from taichi_image_tpu.models import camera_isp
 from taichi_image_tpu.ops.bayer import BayerPattern
 from taichi_image_tpu.scripts.util import write_image
+from taichi_image_tpu.utils.device import enable_compile_cache
 
 
 def main(argv=None):
@@ -32,6 +33,7 @@ def main(argv=None):
   parser.add_argument("--intensity", type=float, default=1.0)
   parser.add_argument("--out", type=Path, default=None)
   args = parser.parse_args(argv)
+  enable_compile_cache()
 
   if args.debug:
     import os

@@ -17,6 +17,7 @@ from taichi_image_tpu.models import camera_isp
 from taichi_image_tpu.ops.bayer import BayerPattern
 from taichi_image_tpu.ops.interpolate import ImageTransform
 from taichi_image_tpu.scripts.util import natsorted, progress, write_image
+from taichi_image_tpu.utils.device import enable_compile_cache
 
 
 def load_cfa(path: Path) -> np.ndarray:
@@ -47,8 +48,9 @@ def main(argv=None):
                            "(reference: ti.init(debug=True))")
   parser.add_argument("--dtype", choices=["f16", "f32", "bf16"],
                       default="f32",
-                      help="working dtype (bf16 = TPU fast path)")
+                      help="working dtype")
   args = parser.parse_args(argv)
+  enable_compile_cache()
 
   if args.debug:
     import os

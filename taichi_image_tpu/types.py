@@ -1,13 +1,13 @@
-"""Dtype conventions and array interop for the TPU ISP framework.
+"""Dtype conventions and array interop for the ISP framework.
 
 Mirrors the role of the reference's ``taichi_image/types.py`` (reference
 ``types.py:12-91``): a *normalized intensity convention* where every kernel
 works internally in float32 in [0, 1] and integer dtypes are related to the
 normalized range by a per-dtype full-scale factor.
 
-TPU-first differences from the reference:
+Differences from the reference:
   * dtypes are plain numpy/jax dtypes (no Taichi types); ``bfloat16`` is a
-    first-class working dtype (preferred on TPU over float16).
+    first-class working dtype beside float16.
   * arrays in and out are numpy or jax arrays; torch (or any other
     producer) interoperates through DLPack instead of a hardwired torch
     branch — see :func:`from_torch` / :func:`to_torch` below. The
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Any, Union
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -34,6 +35,7 @@ __all__ = [
     "f16",
     "bf16",
     "f32",
+    "store_as",
     "from_dlpack",
     "to_dlpack",
     "to_torch",
@@ -41,7 +43,7 @@ __all__ = [
 ]
 
 # Short aliases, mirroring ti.u8 / ti.u16 / ti.i16 / ti.f16 / ti.f32
-# (reference types.py:36-42), plus bfloat16 for TPU.
+# (reference types.py:36-42), plus bfloat16.
 u8 = np.dtype(np.uint8)
 u16 = np.dtype(np.uint16)
 i16 = np.dtype(np.int16)
@@ -93,6 +95,23 @@ def dtype_of(arr) -> np.dtype:
   Mirrors ``ti_type`` (reference types.py:51-57) without the torch branch.
   """
   return canonical_dtype(arr.dtype)
+
+
+def store_as(x, dtype):
+  """``x`` rounded to and stored as ``dtype``: ``x.astype(dtype)`` with
+  the rounding made explicit for the 16-bit floats. XLA may drop a
+  narrowing convert whose result is widened again inside one fusion
+  (excess precision, which the GPU backend allows by default), and the
+  pipeline would then skip the working-dtype rounding it defines.
+  ``reduce_precision`` is kept; it flushes f16 subnormals (< 6.1e-5) to
+  zero, below the u8 and metering resolution."""
+  dt = canonical_dtype(dtype)
+  if dt in (f16, bf16):
+    fi = jnp.finfo(dt)
+    x = jax.lax.reduce_precision(jnp.asarray(x, jnp.float32),
+                                 exponent_bits=fi.nexp,
+                                 mantissa_bits=fi.nmant)
+  return x.astype(dt)
 
 
 def is_float_dtype(dtype: DTypeLike) -> bool:
@@ -150,7 +169,7 @@ def zeros_like(in_arr, shape=None, dtype=None):
 #
 # The reference borrows torch tensors zero-copy throughout (types.py:29-49,
 # camera_isp.py:83-84) so camera drivers hand over GPU buffers without a
-# copy. The TPU-native equivalent is the DLPack protocol: any producer
+# copy. The equivalent here is the DLPack protocol: any producer
 # (torch, cupy, numpy>=1.23) exchanges buffers with jax without going
 # through host numpy. On CPU the exchange is zero-copy; across devices jax
 # falls back to a device transfer.

@@ -1,8 +1,8 @@
 """Bounds (min/max) primitives.
 
 Reference: ``taichi_image/util.py:21-84``. The reference's ``Bounds`` is a
-Taichi dataclass updated with device atomics (util.py:32-38); on TPU there
-are no atomics, so bounds are computed with pure ``jnp.min``/``jnp.max``
+Taichi dataclass updated with device atomics (util.py:32-38); here bounds
+are computed with pure ``jnp.min``/``jnp.max``
 tree reductions and carried as a tiny (2,) f32 array or a host dataclass.
 """
 

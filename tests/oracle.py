@@ -353,3 +353,31 @@ def isp_linear_oracle(image, metrics, gamma=1.0):
   x = image.astype(np.float32)
   y = np.power(np.clip((x - m[0]) / (m[1] - m[0]), 0, None), 1.0 / gamma)
   return np.clip(np.clip(y, 0, 1) * 255.0, 0, 255).astype(np.uint8)
+
+
+def isp_chain_oracle(raws, prev, t, work_dtype=np.float32, gamma=1.0,
+                     intensity=1.0, light_adapt=1.0, color_adapt=0.0,
+                     pattern="RGGB", stride=8):
+  """The whole per-frame ISP on packed12 frames, composed from the
+  oracles above: decode12 -> demosaic -> strided EMA metering over all
+  cameras -> Reinhard -> u8 (reference camera_isp.py:333-403).
+  ``raws`` is (N, H, W*3/2) u8; returns (metrics, (N, 3, H, W) u8).
+
+  A 16-bit ``work_dtype`` rounds where the pipeline stores that dtype:
+  the decoded CFA, the demosaiced RGB, and the mapped ``p`` (inside
+  :func:`isp_reinhard_oracle`)."""
+  wd = np.dtype(work_dtype)
+  rgbs = []
+  for raw in raws:
+    cfa = decode12_oracle(raw).astype(np.float32) * np.float32(1 / 4095.0)
+    cfa = cfa.astype(wd).astype(np.float32)
+    rgb = bayer_to_rgb_oracle(cfa, pattern, out_dtype=np.float32)
+    rgbs.append(rgb.astype(wd).astype(np.float32))
+  rgbs = np.stack(rgbs)
+  metrics = metering_update_oracle(rgbs[:, ::stride, ::stride],
+                                   np.asarray(prev, np.float32), t)
+  with np.errstate(invalid="ignore"):  # dark pixels map to NaN, then 0
+    outs = [isp_reinhard_oracle(rgb, metrics, gamma, intensity,
+                                light_adapt, color_adapt, work_dtype=wd)
+            for rgb in rgbs]
+  return metrics, np.stack(outs).transpose(0, 3, 1, 2)

@@ -448,8 +448,8 @@ def test_fused_yuv420_output():
 
 
 def test_fused_yuv420_bf16_mxu_path():
-  """The bf16 pipeline's I420 rides the single-dot MXU formulation
-  (yuv420_from_phases_u8 mxu=True); values must stay within 1 count of
+  """The bf16 pipeline's I420 rides the single-dot formulation
+  (yuv420_from_phases_u8 dot=True); values must stay within 1 count of
   the f32 two-chain formulation on the same u8 RGB, and within 1 count
   of the yuv420(rgb_output) oracle."""
   import jax
@@ -476,7 +476,7 @@ def test_fused_yuv420_bf16_mxu_path():
   u8_12 = jnp.asarray(rng.integers(0, 256, size=(2, 12, 16, 24),
                                    dtype=np.uint8))
   dy, duv = jax.jit(_yuv420_phases_dot_bf16)(u8_12)
-  cy, cuv = jax.jit(lambda x: yuv420_from_phases_u8(x, mxu=False))(u8_12)
+  cy, cuv = jax.jit(lambda x: yuv420_from_phases_u8(x, dot=False))(u8_12)
   assert np.abs(np.asarray(dy).astype(int)
                 - np.asarray(cy).astype(int)).max() <= 1
   assert np.abs(np.asarray(duv).astype(int)

@@ -5,7 +5,8 @@ camera_isp.py takes arbitrary HxW)."""
 import numpy as np
 import pytest
 
-from taichi_image_tpu.models.camera_isp import Camera16, Camera32
+from taichi_image_tpu.models.camera_isp import (Camera16, Camera32,
+                                                CameraBF16)
 from taichi_image_tpu.models import large
 from taichi_image_tpu.ops.bayer import BayerPattern
 
@@ -26,8 +27,7 @@ def _assert_band_equal(got, want):
 
 
 def test_band_plan_alignment():
-  # band sizes quantize to lcm(stride//2, 16) so the bf16 Reinhard-map
-  # kernel's exact-divisor tiling exists for band shapes
+  # band sizes quantize to lcm(stride//2, 16)
   assert large.band_plan(32, 4) == [(0, 16), (16, 32)]
   assert large.band_plan(2160, 8) == [(r, min(r + 272, 2160))
                                       for r in range(0, 2160, 272)]
@@ -40,8 +40,8 @@ def test_band_plan_alignment():
   assert large.band_plan(4, 16) == [(0, 4)]
 
 
-@pytest.mark.parametrize("camera_cls", [Camera32, Camera16])
-@pytest.mark.parametrize("n_bands", [2, 3])
+@pytest.mark.parametrize("camera_cls", [Camera32, Camera16, CameraBF16])
+@pytest.mark.parametrize("n_bands", [2, 3, 4])
 def test_banded_matches_unbanded(camera_cls, n_bands):
   raws = _raws()
   a = camera_cls(BayerPattern.RGGB, moving_alpha=0.2)
@@ -90,7 +90,7 @@ def test_banded_yuv420():
 @pytest.mark.parametrize("resize_kw", [dict(scale=0.5),
                                        dict(resize_width=60)])
 def test_banded_composes_with_resize(resize_kw):
-  """Banded + resize (round-3): bands partition the OUTPUT rows and
+  """Banded + resize: bands partition the OUTPUT rows and
   demosaic+resize exactly the tapped input rows — same semantics as the
   unbanded fused step's resize path."""
   raws = _raws(h=96, w=96)
@@ -153,35 +153,24 @@ def test_banded_hwc_layout():
   assert out.shape == (2, 64, 96, 3) and out.dtype == np.uint8
 
 
-def test_banded_mixed_kernel_paths_shapes(monkeypatch, rng):
-  """A short last band may be ineligible for the bf16 Reinhard kernel
-  tiling while other bands take it — the two _band_reinhard_map paths
-  must return identically-shaped (p, max) or process_banded crashes at
-  jnp.stack (found by review; reproduced on TPU with h=72)."""
-  import functools
-  import jax.numpy as jnp
-  from taichi_image_tpu import types
-  from taichi_image_tpu.ops.pallas import reinhard as plrh
-
-  raws = jnp.asarray(rng.integers(0, 256, size=(1, 72, 384),
-                                  dtype=np.uint8))
-  # force the kernel route for eligible shapes (interpret mode on CPU);
-  # hb=4 (the 4-row tail band) stays ineligible -> mixed paths
-  monkeypatch.setattr(
-      plrh, "reinhard_bf16_available",
-      lambda nc, hh, wh: plrh.bf16_tiling(hh, wh, nc) is not None)
-  monkeypatch.setattr(plrh, "reinhard_map_bf16_dma",
-                      functools.partial(plrh.reinhard_map_bf16_dma,
-                                        interpret=True))
-  m, out = large.process_banded(
-      raws, np.zeros(9, np.float32), 0.9, n_bands=2,
-      work_dtype=types.bf16, pattern=BayerPattern.RGGB)
-  assert out.shape == (1, 3, 72, 256)
-  assert np.isfinite(np.asarray(m)).all()
+def test_banded_short_last_band_bf16(rng):
+  """A short last band (72 rows = a 32-row band + a 4-row tail in
+  phase rows) yields the same shapes and values as the unbanded step
+  in the bf16 pipeline."""
+  from taichi_image_tpu.models.camera_isp import CameraBF16
+  raws = rng.integers(0, 256, size=(1, 72, 384), dtype=np.uint8)
+  assert large.band_plan(36, 2) == [(0, 32), (32, 36)]
+  a = CameraBF16(BayerPattern.RGGB)
+  b = CameraBF16(BayerPattern.RGGB)
+  want = np.asarray(a.process(raws))
+  got = np.asarray(b.process_large(raws, n_bands=2, driver="loop"))
+  assert got.shape == (1, 3, 72, 256)
+  _assert_band_equal(got, want)
+  assert np.isfinite(np.asarray(b.metrics)).all()
 
 
 def test_banded_shape_fuzz():
-  """Seeded fuzz over the banded driver (round-3, VERDICT #8): dtype x
+  """Seeded fuzz over the banded driver: dtype x
   pattern x bands x resize x transform x color_format must produce
   correctly-shaped finite outputs and match the unbanded step."""
   from taichi_image_tpu import types as tit_types
@@ -230,10 +219,9 @@ def test_banded_shape_fuzz():
 
 
 # ---------------------------------------------------------------------------
-# Round-3 late: lax.scan driver (equal aligned bands, whole set in two
-# programs). Values must be BITWISE-equal to the loop driver (same
-# per-band programs, same metering math; pinned on CPU here and raced
-# on chip in tools/probe_large.py).
+# lax.scan driver (equal aligned bands, whole set in two programs).
+# Values must be BITWISE-equal to the loop driver (same per-band
+# programs, same metering math).
 # ---------------------------------------------------------------------------
 
 
@@ -279,74 +267,6 @@ def test_scan_driver_matches_loop_bitwise(monkeypatch):
                                rtol=0, atol=1e-6)
 
 
-def test_flat_driver_matches_loop_bitwise(monkeypatch):
-  """flat == loop BITWISE on u8 outputs (metrics to f32 ulps): the flat
-  front is the unbanded kernel math run as whole-frame kernel programs
-  (interpret mode on CPU); the loop's bands are forced onto the same
-  Pallas route. Covers rgb / yuv420 / linear and the multi-chunk
-  finish."""
-  import functools
-  import jax
-  from taichi_image_tpu import types
-  from taichi_image_tpu.ops.pallas import decode as pld
-  from taichi_image_tpu.ops.pallas import demosaic as pldm
-  from taichi_image_tpu.ops.pallas import reinhard as plrh
-
-  monkeypatch.setattr(pld, "decode12_phases_bf16",
-                      functools.partial(pld.decode12_phases_bf16,
-                                        interpret=True))
-  monkeypatch.setattr(pld, "decode_pallas_available",
-                      lambda h, wb: pld.decode_tiling(h, wb) is not None)
-  monkeypatch.setattr(pldm, "demosaic_stencil",
-                      functools.partial(pldm.demosaic_stencil,
-                                        interpret=True))
-  monkeypatch.setattr(pldm, "pallas_available",
-                      lambda hh, wh: pldm.tiling_for(hh, wh) is not None)
-  monkeypatch.setattr(plrh, "reinhard_map_bf16_dma",
-                      functools.partial(plrh.reinhard_map_bf16_dma,
-                                        interpret=True))
-  monkeypatch.setattr(plrh, "reinhard_bf16_available",
-                      lambda nc, hh, wh: plrh.bf16_tiling(hh, wh,
-                                                          nc) is not None)
-  monkeypatch.setattr(large, "_FINISH_CHUNK_ROWS", 16)
-
-  raws = _raws(2, h=64, w=256, seed=5)
-  prev = np.zeros(9, np.float32)
-  kw = dict(n_bands=2, work_dtype=types.bf16, pattern=BayerPattern.GBRG,
-            stride=2, gamma=0.9, intensity=1.5)
-  for extra in ({}, {"color_format": "yuv420"}, {"tonemap": "linear"}):
-    m_f, o_f = large.process_banded(raws, prev, 0.0, driver="flat",
-                                    **kw, **extra)
-    m_l, o_l = large.process_banded(raws, prev, 0.0, driver="loop",
-                                    **kw, **extra)
-    for a, b in zip(jax.tree_util.tree_leaves(o_f),
-                    jax.tree_util.tree_leaves(o_l)):
-      np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    np.testing.assert_allclose(np.asarray(m_f), np.asarray(m_l),
-                               rtol=0, atol=1e-6)
-
-
-def test_flat_driver_misuse_raises():
-  """Forced flat must raise when the whole-frame kernels can't run:
-  f16 working dtype (Mosaic has no f16 I/O), non-kernel raw widths
-  (wb % 384), or a resize plan."""
-  from taichi_image_tpu import types
-  prev = np.zeros(9, np.float32)
-  with pytest.raises(ValueError, match="flat driver"):
-    large.process_banded(_raws(2, h=64, w=256), prev, 0.0, n_bands=2,
-                         work_dtype=types.f16,
-                         pattern=BayerPattern.RGGB, driver="flat")
-  with pytest.raises(ValueError, match="flat driver"):
-    large.process_banded(_raws(2, h=64, w=96), prev, 0.0, n_bands=2,
-                         work_dtype=types.bf16,
-                         pattern=BayerPattern.RGGB, driver="flat")
-  with pytest.raises(ValueError, match="flat driver"):
-    large.process_banded(_raws(2, h=64, w=256), prev, 0.0, n_bands=2,
-                         work_dtype=types.bf16,
-                         pattern=BayerPattern.RGGB, driver="flat",
-                         resize_plan=((128, 32), None))
-
-
 def test_scan_driver_misuse_raises():
   from taichi_image_tpu import types
   raws = _raws(2, h=64, w=96)
@@ -363,46 +283,18 @@ def test_scan_driver_misuse_raises():
                          resize_plan=((48, 32), None))
 
 
-def test_n_bands_clamped_to_compilable_band_size():
-  """n_bands is a minimum: row counts are split so no band exceeds
-  _BAND_ROWS_MAX phase rows (larger band programs crash the remote
-  compiler; the default n_bands=4 at 8K must not) — including the
-  q-rounding overshoot a naive rows/max split misses."""
-  cap = large._BAND_ROWS_MAX
-
-  def fit(hh, n_bands, stride=8):
-    q = int(np.lcm(max(stride // 2, 1), 16))
-    if hh < q:
-      q = max(stride // 2, 1)
-    return large._fit_bands(
-        -(-hh // cap), n_bands, lambda n: large.band_plan(hh, n, stride),
-        lambda plan: max(r1 - r0 for r0, r1 in plan),
-        n_max=max(1, hh // q))
-
-  # 8K with the default n_bands=4: 8 bands of <= cap
-  n, plan = fit(2160, 4)
-  assert n == 8
-  assert all(r1 - r0 <= cap for r0, r1 in plan)
-  # scan plan under the same clamp picks 240-row bands
-  assert large.scan_band_size(2160, n, 16) == 240
-  # q-rounding overshoot: ceil(2760/10)=276 rounds to 288 > cap, so the
-  # fit must go finer than the naive ceil(2760/280)=10 split
-  n2, plan2 = fit(2760, 4)
-  assert n2 > 10
-  assert all(r1 - r0 <= cap for r0, r1 in plan2)
-  # unreachable cap (quantum > cap): stops at the quantum, no spin
-  n3, plan3 = fit(600, 1, stride=2 * 300)
-  assert plan3 == large.band_plan(600, n3, 2 * 300)
-  # q-rounding PLATEAU: hh=10080 holds 288-row bands (> cap) at n=36
-  # and 37 — consecutive equal plans must be stepped over, not
-  # returned (advisor round-3 medium finding); n=38 reaches 272
-  n4, plan4 = fit(10080, 4)
-  assert all(r1 - r0 <= cap for r0, r1 in plan4)
-  assert n4 == 38
-  # scan_band_size never offers a band beyond the compilable bound even
-  # when n_bands would admit one (defense in depth)
-  b = large.scan_band_size(10080, 4, 16)
-  assert b is not None and b <= cap and 10080 % b == 0
+@pytest.mark.parametrize("hh,n_bands", [(2160, 4), (2160, 8), (1080, 3)])
+def test_n_bands_is_what_the_caller_asks(hh, n_bands):
+  """The band planners take ``n_bands`` as given: no band-size cap
+  raises it (8K at n_bands=4 runs as four 544-row bands)."""
+  plan = large.band_plan(hh, n_bands)
+  assert len(plan) == n_bands
+  assert plan[0][0] == 0 and plan[-1][1] == hh
+  per = plan[0][1] - plan[0][0]
+  assert per % 16 == 0 and per >= hh / n_bands
+  b = large.scan_band_size(hh, n_bands, 16)
+  if b is not None:
+    assert hh % b == 0 and b <= per
 
 
 def test_auto_driver_skips_sliver_scan(monkeypatch):

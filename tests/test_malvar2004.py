@@ -3,8 +3,7 @@
 The Taichi reference validates its MHC demosaic by PSNR against
 ``colour_demosaicing``'s Malvar2004 (reference test/compare_bayer.py:31-44).
 Neither ``taichi`` nor ``colour_demosaicing`` can install in this
-environment (zero egress — the verbatim pip attempt is recorded in
-BASELINE.md), so this file carries an independent implementation of the
+environment (no network), so this file carries an independent implementation of the
 SAME published filter bank, written directly from the paper:
 
   H.S. Malvar, L.-W. He, R. Cutler, "High-quality linear interpolation
@@ -113,7 +112,7 @@ def test_interior_matches_paper_exactly(fixture_img, pattern):
 def test_u8_shootout_psnr(fixture_img, pattern):
   """Reference-style shoot-out (compare_bayer.py:31-44) but ASSERTED:
   the u8 pipeline vs the independent paper implementation on the same
-  CFA must exceed 50 dB (BASELINE.json's cross-implementation floor).
+  CFA must exceed 50 dB (the cross-implementation floor).
   Interior crop, like the reference comparison (compare_bayer.py:36-38):
   at the 2-pixel border the implementations differ BY DESIGN (this
   file zero-pads; the framework renormalizes dropped taps)."""

@@ -90,10 +90,9 @@ def test_vs_opencv_independent_demosaic(fixture_img, pattern):
 
 
 def test_bf16_full_step_psnr_vs_f32():
-  """The bf16 flagship's full-step output stays > 50 dB PSNR of the f32
-  pipeline on the natural fixture (BASELINE.json quality target). The
-  residual error is metering-stat quantization shifting the global
-  Reinhard curve (docs/PERFORMANCE.md); measured 58.1 dB on TPU."""
+  """The bf16 pipeline's full-step output stays > 50 dB PSNR of the f32
+  pipeline on the natural fixture. The residual error is metering-stat
+  quantization shifting the global Reinhard curve."""
   import jax
   import jax.numpy as jnp
   from conftest import make_test_rgb

@@ -141,7 +141,7 @@ def test_compare_bayer_cli(tmp_path, capsys):
 def test_compare_bayer_write_and_headless_show(tmp_path, capsys):
   """--write saves per-pattern/method PNGs; --show falls back to
   writing on a headless host (the reference's interactive harness,
-  test/bayer.py:34-41, substituted per round-4 VERDICT missing #2)."""
+  test/bayer.py:34-41)."""
   pytest.importorskip("PIL")
   from PIL import Image
   img = (make_test_rgb(48, 64) * 255).astype(np.uint8)
@@ -202,12 +202,21 @@ def test_example_camera_rig(tmp_path):
   assert len(list((tmp_path / "rig").glob("*.jpg"))) == 2
 
 
-def test_bench_shootout_smoke(capsys):
-  """Cross-implementation race harness runs end-to-end (reference
-  analogue: bench/interpolate.py taichi-vs-torch.compile race)."""
-  from taichi_image_tpu.bench import shootout
-  shootout.main(["--size", "32", "48", "--k", "2", "--reps", "1"])
-  out = capsys.readouterr().out
-  assert "demosaic[xla]" in out
-  assert "decode12[xla]" in out
-  assert "resize+rot90[jax" in out
+@pytest.mark.parametrize("entry", ["bench", "camera_isp", "bayer",
+                                   "interpolate"])
+def test_benchmarks_refuse_without_gpu(entry, capsys):
+  """Every timing entry point fails on a machine without a GPU instead
+  of timing the CPU, and prints no result."""
+  import importlib
+  import pathlib
+  import sys
+  if entry == "bench":
+    sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
+    mod = importlib.import_module("bench")
+    run = mod.main
+  else:
+    mod = importlib.import_module(f"taichi_image_tpu.bench.{entry}")
+    run = lambda: mod.main([])
+  with pytest.raises(RuntimeError, match="GPU is required"):
+    run()
+  assert "frames" not in capsys.readouterr().out
